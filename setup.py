@@ -6,7 +6,8 @@ setup(
     description=("TPU-native multi-intersection traffic-light RL "
                  "framework (JAX/XLA)"),
     packages=find_packages(exclude=("tests",)),
-    package_data={"traffic_env_tpu.runtime": ["traffic_native.cpp"]},
+    package_data={"traffic_env_tpu.runtime": ["traffic_native.cpp"],
+                  "traffic_env_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy"],
     python_requires=">=3.10",
 )

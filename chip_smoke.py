@@ -22,7 +22,20 @@ Phases, one JSON line each:
    warm-up agent steps, then 120 agent steps timed best of 3, each
    ended by a host fetch.  Env-steps/s, and the kernel's launch count,
    which must equal the windows run.
-6. timing: the kernel's time per window by CUDA events, the plain
+6. telemetry_parity: the validate-mode variant of the kernel (light
+   times, trip-time histogram) against its plain version on the card,
+   3x3 grid, 4096 envs, 50 windows, autoreset on, device spawns and
+   schedule rows: every state leaf, the light times and the histogram
+   bit-equal, and exit pops counted.
+7. qlearn: the flagship trainer through ``run_alg`` at the JAX
+   package's default widths (3x3, history 20, QNet 200, batch 30,
+   buffer 10000, 120 agent steps an episode) and 4096 envs: 3 training
+   episodes with a validation at episode 2, then a ``mode="validate",
+   restore=True`` episode from the checkpoint.  Each run's kernel
+   launches must equal the windows it ran, by variant; the loss must
+   be finite and the validation must return trip and light times.  Then
+   a timed training episode: agent-step ms and env-steps/s.
+8. timing: each variant's time per window by CUDA events, the plain
    version's, and the bound from this run's bytes and operations.
 
 Then the ``kernels`` line, the nvidia-smi line, and last the ``ok``
@@ -30,14 +43,22 @@ line.  Any failure exits non-zero before the ``ok`` line; without a
 CUDA device the script exits non-zero at once.
 """
 
+import contextlib
+import io
 import json
+import math
+import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from traffic_env_tpu_torch.algorithms import qlearn, run_alg
 from traffic_env_tpu_torch.config import Config, derive_spawn_rate
 from traffic_env_tpu_torch.envs import fast_core
 from traffic_env_tpu_torch.envs.rollout import (bind_schedule,
@@ -82,8 +103,9 @@ def bench_config(topo):
     return derive_spawn_rate(cfg, topo.open_sides(0))
 
 
-def clone_sim(sim):
-    return sim.replace(**{k: v.clone() for k, v in vars(sim).items()})
+def sim_leaves(sim):
+    """The state's tensors by name (trip_hist only when attached)."""
+    return {k: v for k, v in vars(sim).items() if v is not None}
 
 
 def leaf_diff(a, b):
@@ -107,10 +129,22 @@ def schedule_rows(rng, cfg, spec, E, B, dev):
 
 
 def parity_case(name, topo, cfg, n_windows, device_spawns, autoreset, Ks,
-                seed, all_red=False):
+                seed, all_red=False, telemetry=False):
+    """The kernel against its plain version from one reset; with
+    ``telemetry`` the validate-mode variant, its light times and its
+    trip-time histogram included."""
     dev = torch.device(DEVICE)
     B, I, E = N_ENVS, topo.intersections, len(topo.entrypoints)
+    if telemetry:
+        cfg = cfg.replace(mode="validate")
     spec = make_window_spec(topo, cfg, device_spawns, Ks)
+    tel_k = tel_p = (None, None)
+    if telemetry:
+        th = torch.zeros((cfg.episode_ticks + 2, B), dtype=torch.int32,
+                         device=dev)
+        light = torch.empty((I, B), dtype=torch.float32, device=dev)
+        tel_k = (th, light)
+        tel_p = (th.clone(), light.clone())
     rng = np.random.RandomState(seed)
     gen = torch.Generator()
     gen.manual_seed(seed)
@@ -118,7 +152,7 @@ def parity_case(name, topo, cfg, n_windows, device_spawns, autoreset, Ks,
     phase = np.zeros((I, B), np.int32) if all_red else \
         rng.randint(2, size=(I, B)).astype(np.int32)
     sim = fast_core.reset(sim, torch.as_tensor(phase))
-    sim_k, sim_p = clone_sim(sim), clone_sim(sim)
+    sim_k, sim_p = sim.clone(), sim.clone()
     dk, dp = sim_to_dict(sim_k), sim_to_dict(sim_p)
     lanes_reset, max_err, unequal = 0, 0.0, set()
     for _ in range(n_windows):
@@ -130,18 +164,21 @@ def parity_case(name, topo, cfg, n_windows, device_spawns, autoreset, Ks,
         if autoreset:
             lanes_reset += int(dk["done"].sum())
         out_k = window_cuda.window(spec, dk, action, rows, sim_k.seed,
-                                   autoreset)
+                                   autoreset, *tel_k)
         out_p = window_reference(spec, dp, action, rows, sim_p.seed,
-                                 autoreset)
+                                 autoreset, *tel_p)
         pairs = [(k, dk[k], dp[k]) for k in STATE_KEYS] + list(zip(
             ("acc_passed", "rew_sum", "last_rew", "last_passed"),
             out_k, out_p))
+        if telemetry:
+            pairs += list(zip(("trip_hist", "light"), tel_k, tel_p))
         for k, u, v in pairs:
             eq, err = leaf_diff(u, v)
             if not eq:
                 unequal.add(k)
                 max_err = max(max_err, err)
-    row = {"phase": "parity", "case": name, "envs": B,
+    row = {"phase": "telemetry_parity" if telemetry else "parity",
+           "case": name, "envs": B,
            "windows": n_windows, "autoreset": autoreset,
            "spawns": "device" if device_spawns else "schedule",
            "lanes_reset" if autoreset else "lanes_done_at_end":
@@ -149,6 +186,8 @@ def parity_case(name, topo, cfg, n_windows, device_spawns, autoreset, Ks,
            "cars_on_roads_at_end": int(fast_core.cars_per_road(sim_k).sum()),
            "equal": not unequal, "unequal_leaves": sorted(unequal),
            "max_abs_err": max_err}
+    if telemetry:
+        row["exit_pops"] = int(tel_k[0].sum())
     emit(row)
     if unequal:
         raise SmokeFailure(f"kernel != plain version in case {name}: "
@@ -176,6 +215,22 @@ def parity_phase():
     if row["lanes_reset"] < 1:
         raise SmokeFailure("overflow scenario reset no lane")
     rows.append(row)
+    return rows
+
+
+def telemetry_parity_phase():
+    topo = GridRoad(3, 3, 250.0)
+    cfg = bench_config(topo)
+    rows = []
+    for i, device_spawns in enumerate((True, False)):
+        name = (f"3x3_validate_{'device' if device_spawns else 'schedule'}"
+                "_autoreset_on")
+        row = parity_case(name, topo, cfg, 50, device_spawns, True,
+                          4 if device_spawns else 8, seed=30 + i,
+                          telemetry=True)
+        if row["exit_pops"] < 1:
+            raise SmokeFailure(f"no car left the map in case {name}")
+        rows.append(row)
     return rows
 
 
@@ -224,7 +279,7 @@ def bench_phase(card):
     benv = make_batched_env(topo, cfg, N_ENVS, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    window_cuda.launches = 0
+    window_cuda.launches = window_cuda.telemetry_launches = 0
     state = benv.init(gen)
     state, obs = benv.reset(state)
     state, gen, rews, dones = random_rollout(benv, state, gen, warmup)
@@ -258,59 +313,80 @@ def bench_phase(card):
     return benv, state, launches, best
 
 
-def timing_phase(card, state, topo, cfg):
-    """CUDA-event time per window of the kernel and of the plain
-    version on a copy of the bench state; bound from bytes and ops."""
+def timing_phase(card, state, topo, cfg, telemetry):
+    """CUDA-event time per window of one variant of the kernel and of
+    its plain version on a copy of the bench state; bound from bytes
+    and ops.  The training variant also reads the batch scaling."""
     dev = torch.device("cuda")
-    spec = make_window_spec(topo, cfg, True, 4)
+    vcfg = cfg.replace(mode="validate") if telemetry else cfg
+    spec = make_window_spec(topo, vcfg, True, 4)
     I, B = topo.intersections, N_ENVS
-    sim = clone_sim(state.sim)
+    sim = state.sim.clone()
     d = sim_to_dict(sim)
+    tel = (None, None)
+    if telemetry:
+        tel = (torch.zeros((vcfg.episode_ticks + 2, B), dtype=torch.int32,
+                           device=dev),
+               torch.empty((I, B), dtype=torch.float32, device=dev))
     acts = torch.randint(0, 2, (64, I, B), dtype=torch.int32, device=dev)
     for i in range(5):
-        window_cuda.window(spec, d, acts[i], None, sim.seed, True)
-    snap = clone_sim(sim)
+        window_cuda.window(spec, d, acts[i], None, sim.seed, True, *tel)
+    snap = sim.clone()
+    rtel = (tel[0].clone(), torch.empty_like(tel[1])) if telemetry \
+        else (None, None)
     n = 50
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     e0.record()
     for i in range(n):
-        window_cuda.window(spec, d, acts[i % 64], None, sim.seed, True)
+        window_cuda.window(spec, d, acts[i % 64], None, sim.seed, True, *tel)
     e1.record()
     torch.cuda.synchronize()
     ms = e0.elapsed_time(e1) / n
     cars_after = int(fast_core.cars_per_road(sim).sum())
     # Replay the timed windows on a copy to count the car slots their
     # data needs: a lane's cars are read unless it starts the window done
-    # (the lazy reset empties it unread), and written as they end it.
+    # (the lazy reset empties it unread), and written as they end it;
+    # with telemetry, the trip_hist cells the window's exit pops touch.
     rd = sim_to_dict(snap)
     cars_read = torch.zeros((), dtype=torch.int64, device=dev)
     cars_written = torch.zeros_like(cars_read)
+    cells = torch.zeros_like(cars_read)
     for i in range(n):
         live = ~snap.done
         cars_read += (fast_core.cars_per_road(snap).sum(0) * live).sum()
-        window_cuda.window(spec, rd, acts[i % 64], None, snap.seed, True)
+        before = rtel[0].clone() if telemetry else None
+        window_cuda.window(spec, rd, acts[i % 64], None, snap.seed, True,
+                           *rtel)
         cars_written += fast_core.cars_per_road(snap).sum()
-    replay_equal = all(torch.equal(u, v) for u, v in
-                       zip(vars(snap).values(), vars(sim).values()))
+        if telemetry:
+            cells += (rtel[0] != before).sum()
+    replay_equal = all(torch.equal(v, sim_leaves(sim)[k])
+                       for k, v in sim_leaves(snap).items())
+    if telemetry:
+        replay_equal = replay_equal and torch.equal(rtel[0], tel[0])
     if not replay_equal:
         raise SmokeFailure("a replay of the timed windows gave another "
                            "state")
     cars_read_pw = int(cars_read) / n
     cars_written_pw = int(cars_written) / n
+    cells_pw = int(cells) / n
     n_plain = 3
-    psim = clone_sim(sim)
+    psim = sim.clone()
     pd = sim_to_dict(psim)
-    window_reference(spec, pd, acts[0], None, psim.seed, True)
+    ptel = (tel[0].clone(), torch.empty_like(tel[1])) if telemetry \
+        else (None, None)
+    window_reference(spec, pd, acts[0], None, psim.seed, True, *ptel)
     e0.record()
     for i in range(n_plain):
-        window_reference(spec, pd, acts[i], None, psim.seed, True)
+        window_reference(spec, pd, acts[i], None, psim.seed, True, *ptel)
     e1.record()
     torch.cuda.synchronize()
     plain_ms = e0.elapsed_time(e1) / n_plain
     # bytes per window, each read once and written once: the car slots
     # this run's windows held (x, v, w, 12 B a slot) plus each road's
     # fake-leader slot, and the integer planes; seed and action read
-    # once, the four window outputs written once
+    # once, the four window outputs written once; with telemetry each
+    # touched trip_hist cell read and written once and light written
     slot_bytes = 3 * 4
     car_bytes = slot_bytes * (cars_read_pw + cars_written_pw
                               + 2 * topo.roads * B)
@@ -318,18 +394,45 @@ def timing_phase(card, state, topo, cfg):
                     for k in STATE_KEYS if k not in ("x", "v", "w"))
     in_bytes = sim.seed.numel() * 4 + acts[0].numel() * 4
     out_bytes = (2 * topo.train_roads + 2 * I) * B * 4
-    n_bytes = car_bytes + 2 * int_bytes + in_bytes + out_bytes
+    tel_bytes = cells_pw * 4 * 2 + I * B * 4 if telemetry else 0
+    n_bytes = car_bytes + 2 * int_bytes + in_bytes + out_bytes + tel_bytes
     car_ticks = (cars_read_pw + cars_written_pw) / 2 * spec.W
     n_ops = car_ticks * IDM_OPS_PER_CAR_TICK
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = n_ops / PEAK_F32_PER_S * 1e3
-    # batch scaling: one thread per env, so the batch sets how many SMs
-    # the kernel fills; the warmed state sliced or tiled along the batch
+    row = {"phase": "timing", "variant": "window_telemetry" if telemetry
+           else "window", "card": card, "envs": B, "ms": ms,
+           "plain_ms": plain_ms, "bytes": n_bytes, "bytes_ms": bytes_ms,
+           "f32_ops": n_ops, "ops_ms": ops_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "cars_on_roads": cars_after,
+           "car_slots_read_per_window": cars_read_pw,
+           "car_slots_written_per_window": cars_written_pw,
+           "car_bytes": car_bytes, "int_bytes_each_way": int_bytes,
+           "library_ms": None,
+           "library_note": "no single PyTorch call computes this"}
+    if telemetry:
+        row.update(trip_hist_cells_per_window=cells_pw,
+                   telemetry_bytes=tel_bytes)
+    else:
+        row["ms_per_window_by_envs"] = batch_scaling(spec, sim, I, B, ms)
+    emit(row)
+    return row
+
+
+def batch_scaling(spec, sim, I, B, ms):
+    """ms per window at 1024 and 16384 envs: one thread per env, so the
+    batch sets how many SMs the kernel fills; the warmed state sliced or
+    tiled along the batch."""
+    dev = torch.device("cuda")
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     per_batch = {}
     for nb in (1024, 16384):
         rep = -(-nb // B)
         bsim = sim.replace(**{k: torch.cat([v] * rep, dim=-1)[..., :nb]
-                              .contiguous() for k, v in vars(sim).items()})
+                              .contiguous()
+                              for k, v in sim_leaves(sim).items()})
         bd = sim_to_dict(bsim)
         bacts = torch.randint(0, 2, (4, I, nb), dtype=torch.int32,
                               device=dev)
@@ -341,26 +444,123 @@ def timing_phase(card, state, topo, cfg):
         torch.cuda.synchronize()
         per_batch[str(nb)] = e0.elapsed_time(e1) / 20
     per_batch[str(B)] = ms
-    row = {"phase": "timing", "card": card, "envs": B, "ms": ms,
-           "ms_per_window_by_envs": per_batch,
-           "plain_ms": plain_ms, "bytes": n_bytes, "bytes_ms": bytes_ms,
-           "f32_ops": n_ops, "ops_ms": ops_ms,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "cars_on_roads": cars_after,
-           "car_slots_read_per_window": cars_read_pw,
-           "car_slots_written_per_window": cars_written_pw,
-           "car_bytes": car_bytes, "int_bytes_each_way": int_bytes,
-           "library_ms": None,
-           "library_note": "no single PyTorch call computes this"}
+    return per_batch
+
+
+def qlearn_config(**kw):
+    """The flagship trainer at the JAX package's default widths on
+    4096 envs."""
+    return Config(trainer="qlearn", num_envs=N_ENVS, **kw).derive()
+
+
+def read_metrics(logdir):
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def qlearn_phase(card):
+    """run_alg train (3 episodes, validation at 2) and a validate-mode
+    restore, each with the launch counts set to 0 just before it; then a
+    timed training episode."""
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_qlearn_")
+    try:
+        cfg = qlearn_config(total_episodes=3, validate_rate=2,
+                            save_rate=1000, summary_rate=1, logdir=logdir)
+        # windows: a reset is 1 + warmup + (history - 1) windows
+        reset_w = 1 + cfg.warmup_lights + cfg.history - 1
+        window_cuda.launches = window_cuda.telemetry_launches = 0
+        t0 = time.perf_counter()
+        ts = run_alg(cfg)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = (window_cuda.launches,
+                          window_cuda.telemetry_launches)
+        n_val = cfg.total_episodes // cfg.validate_rate
+        train_windows = (reset_w + cfg.total_episodes * cfg.episode_len
+                         + n_val * (reset_w + cfg.episode_len))
+        metrics = read_metrics(logdir)
+        losses = [m["value"] for m in metrics if m["name"] == "loss"]
+        val_r = [m["value"] for m in metrics if m["name"] == "avg_r_summary"]
+        train_row = {
+            "phase": "qlearn_train", "card": card, "envs": N_ENVS,
+            "episodes": ts.episode, "agent_steps": ts.step,
+            "sgd_steps": ts.train_steps, "seconds_with_setup": train_s,
+            "losses": losses, "validation_rewards": val_r,
+            "kernel_launches": train_launches[0],
+            "telemetry_launches": train_launches[1],
+            "windows_run": train_windows,
+            "files": sorted(os.listdir(logdir))}
+        emit(train_row)
+        if train_launches != (train_windows, 0):
+            raise SmokeFailure(f"qlearn train launched {train_launches} for "
+                               f"{train_windows} windows")
+        if not losses or not all(math.isfinite(x) for x in losses) \
+                or ts.train_steps < 1 or not val_r:
+            raise SmokeFailure("qlearn train: no SGD step, no validation "
+                               "or a non-finite loss")
+
+        vcfg = qlearn_config(mode="validate", restore=True,
+                             total_episodes=1, logdir=logdir)
+        window_cuda.launches = window_cuda.telemetry_launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            lights, trips, unfinished = run_alg(vcfg)
+        torch.cuda.synchronize()
+        val_launches = (window_cuda.launches,
+                        window_cuda.telemetry_launches)
+        # make_state's reset, then the validation episode's reset + steps
+        val_windows = 2 * reset_w + vcfg.episode_len
+        reward = [float(x) for x in re.findall(r"Reward ([-0-9.e+]+)",
+                                               out.getvalue())]
+        val_row = {
+            "phase": "qlearn_validate", "card": card, "envs": N_ENVS,
+            "rewards": reward, "trip_times": len(trips),
+            "light_times": len(lights),
+            "mean_trip_s": float(np.mean(trips)) if trips else None,
+            "mean_light_s": float(np.mean(lights)) if lights else None,
+            "unfinished_cars_per_env": unfinished,
+            "kernel_launches": val_launches[0],
+            "telemetry_launches": val_launches[1],
+            "windows_run": val_windows}
+        emit(val_row)
+        if val_launches != (0, val_windows):
+            raise SmokeFailure(f"qlearn validate launched {val_launches} "
+                               f"for {val_windows} telemetry windows")
+        if not trips or not lights or len(reward) != 1 \
+                or not math.isfinite(reward[0]):
+            raise SmokeFailure("qlearn validate returned no telemetry or "
+                               "no finite reward")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+
+    # steady training: one episode to fill the replay, one timed
+    tcfg = qlearn_config()
+    ctx, ts = qlearn.make_state(tcfg)
+    ctx.fns.run_episode(ts)
+    t0 = time.perf_counter()
+    stats = ctx.fns.run_episode(ts)        # ends with a host fetch
+    dt = time.perf_counter() - t0
+    steps = tcfg.episode_len
+    row = {"phase": "qlearn_timing", "card": card, "envs": N_ENVS,
+           "agent_steps": steps, "seconds": dt,
+           "agent_step_ms": dt / steps * 1e3,
+           "env_steps_per_s": steps * tcfg.light_iterations * N_ENVS / dt,
+           "sgd_steps_total": ts.train_steps,
+           "episode_stats": dict(zip(("mean_reward", "loss", "max_q",
+                                      "gnorm"), stats))}
     emit(row)
-    return row
+    if not all(math.isfinite(x) for x in stats):
+        raise SmokeFailure("qlearn timing episode gave a non-finite stat")
+    return train_row, val_row, row
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # full float32 in every matrix product the parity phases compare
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi()
     emit({"phase": "card", "nvidia_smi": card,
           "name": torch.cuda.get_device_name(0),
@@ -381,20 +581,40 @@ def main():
     env_parity_phase()
     topo = GridRoad(3, 3, 250.0)
     benv, state, launches, best = bench_phase(card)
-    timing = timing_phase(card, state, topo, bench_config(topo))
+    tparity = telemetry_parity_phase()
+    train_row, val_row, qtime = qlearn_phase(card)
+    core = timing_phase(card, state, topo, bench_config(topo), False)
+    tel = timing_phase(card, state, topo, bench_config(topo), True)
     step_ms = bench_config(topo).light_iterations * N_ENVS / best * 1e3
     emit({"phase": "breakdown", "card": card,
-          "agent_step_ms_best": step_ms, "kernel_ms": timing["ms"],
-          "kernel_share_of_step": timing["ms"] / step_ms})
+          "agent_step_ms_best": step_ms, "kernel_ms": core["ms"],
+          "kernel_share_of_step": core["ms"] / step_ms,
+          "qlearn_agent_step_ms": qtime["agent_step_ms"],
+          "kernel_share_of_qlearn_step":
+              core["ms"] / qtime["agent_step_ms"]})
 
+    source = "traffic_env_tpu_torch/csrc/window.cu"
     emit({"kernels": [{
-        "name": "window", "route": "cuda",
-        "source": "traffic_env_tpu_torch/csrc/window.cu",
+        "name": "window", "route": "cuda", "source": source,
         "replaces": "traffic_env_tpu/ops/pallas_window.py:97",
-        "launches": launches,
+        "launches": train_row["kernel_launches"],
+        "launches_by_path": {"bench": launches,
+                             "qlearn_train": train_row["kernel_launches"],
+                             "qlearn_validate": val_row["kernel_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in parity),
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "ms": core["ms"], "plain_ms": core["plain_ms"],
+        "bound_ms": core["bound_ms"], "bound_by": core["bound_by"],
+        "library_ms": None}, {
+        "name": "window_telemetry", "route": "cuda", "source": source,
+        "replaces": "traffic_env_tpu/ops/pallas_window.py:97 "
+                    "(emit_trips=True, :244-250, :559-578, :853-862)",
+        "launches": val_row["telemetry_launches"],
+        "launches_by_path": {
+            "bench": 0, "qlearn_train": train_row["telemetry_launches"],
+            "qlearn_validate": val_row["telemetry_launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in tparity),
+        "ms": tel["ms"], "plain_ms": tel["plain_ms"],
+        "bound_ms": tel["bound_ms"], "bound_by": tel["bound_by"],
         "library_ms": None}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

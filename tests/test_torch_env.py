@@ -128,7 +128,7 @@ def test_step_updates_state_in_place(lazy):
     gen = torch.Generator()
     gen.manual_seed(0)
     old, _ = env.reset(env.init(gen))
-    kept = old.sim.replace(**{k: v.clone() for k, v in vars(old.sim).items()})
+    kept = old.sim.clone()
     fn = env.step_autoreset_lazy if lazy else env.step
     new, _, _, _, _ = fn(old, torch.ones((topo.intersections, 4),
                                          dtype=torch.int32))

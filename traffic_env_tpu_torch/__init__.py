@@ -3,8 +3,9 @@
 The grid-road IDM traffic simulator, batched over thousands of lockstep
 envs, with its light-period window as a hand-written CUDA kernel for
 Hopper (``csrc/window.cu``) and that kernel's plain PyTorch version for
-the CPU.  Imports torch and numpy only; never jax, and nothing of the
-JAX package.
+the CPU, and the qlearn trainer on top (``python -m
+traffic_env_tpu_torch --trainer=qlearn``).  Imports torch and numpy
+only; never jax, and nothing of the JAX package.
 """
 
 from .config import Config, derive_spawn_rate

@@ -1,6 +1,7 @@
 """Configuration: a frozen, hashable dataclass with fixed-point
 derivations (the port's copy of ``traffic_env_tpu/config.py:Config``,
-``derive`` and ``derive_spawn_rate``; the CLI parser is not ported).
+``derive``, ``entry_spec``, ``derive_spawn_rate`` and the CLI parser
+``parse_flags``).
 
 Derivation callbacks rewrite derived fields until the config stops
 changing.  Field names and defaults are the JAX package's, so one
@@ -9,12 +10,23 @@ changing.  Field names and defaults are the JAX package's, so one
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import sys
 from typing import Callable, Optional
 
 # Registered derivation callbacks: Config -> dict of field overrides.
 _DERIVATIONS: list[Callable[["Config"], dict]] = []
+
+# Flags the last parse_flags() call saw explicitly on the command line
+# (restore mode lets these override the settings.json snapshot even
+# when their value equals the dataclass default).
+_EXPLICIT_CLI: set = set()
+
+
+def explicit_cli_flags() -> set:
+    return set(_EXPLICIT_CLI)
 
 
 def add_derivation(fn: Callable[["Config"], dict]) -> Callable:
@@ -41,7 +53,7 @@ class Config:
     squish_rewards: bool = False
     remi: bool = True
 
-    # -- shared RL flags (read by learners not yet ported) ---------------
+    # -- shared RL flags -------------------------------------------------
     restore: bool = False
     grad_summary: bool = False
     print_discounted: bool = True
@@ -183,7 +195,45 @@ def _qlearn_derivations(cfg: Config) -> dict:
     return out
 
 
+def entry_spec(cfg: Config, rng=None) -> int:
+    """4-bit boundary mask from the --entry flag."""
+    if cfg.entry == "random":
+        import numpy as np
+        r = rng if rng is not None else np.random
+        return int(r.randint(0b1111))
+    if cfg.entry == "one":
+        return 0b1110
+    return 0
+
+
 def derive_spawn_rate(cfg: Config, open_sides: int) -> Config:
     """cars_per_sec = local_cars_per_sec * m * open_sides."""
     return cfg.replace(
         cars_per_sec=cfg.local_cars_per_sec * cfg.grid_m * open_sides)
+
+
+def parse_flags(argv=None) -> Config:
+    """Every Config field as a ``--flag``; returns the derived Config.
+    ``allow_abbrev=False``: an abbreviated flag would be recorded under
+    its abbreviation, so a --restore run would let the settings.json
+    snapshot win over the user's explicit override."""
+    parser = argparse.ArgumentParser(description="traffic_env_tpu_torch",
+                                     allow_abbrev=False)
+    for f in dataclasses.fields(Config):
+        name = "--" + f.name
+        if f.type in ("bool", bool):
+            parser.add_argument(
+                name, nargs="?", const=True, default=f.default,
+                type=lambda s: s in (True, "True", "true", "1"))
+        elif f.name == "total_episodes":
+            parser.add_argument(name, type=int, default=None)
+        else:
+            typ = {"int": int, "float": float, "str": str}.get(f.type, str)
+            parser.add_argument(name, type=typ, default=f.default)
+    ns = parser.parse_args(argv)
+    argv = sys.argv[1:] if argv is None else argv
+    _EXPLICIT_CLI.clear()
+    for tok in argv:
+        if tok.startswith("--"):
+            _EXPLICIT_CLI.add(tok[2:].split("=", 1)[0])
+    return Config(**vars(ns)).derive()

@@ -5,9 +5,18 @@
 // ticks of one light period for a batch of envs, with the Repeater's
 // window sums.  This file covers one car archetype (k = 1), spawns from
 // schedule rows or from the in-kernel Poisson renewal chain with its
-// backlog, and the lazy autoreset.  Its plain PyTorch version is
+// backlog, the lazy autoreset, and validate mode's trip telemetry
+// (emit_trips, pallas_window.py:244-250, :559-578, host scatter
+// :853-862).  Its plain PyTorch version is
 // traffic_env_tpu_torch/ops/window.py:window_reference; the two agree
 // bit for bit.
+//
+// Telemetry: the TPU kernel writes a (W*Kc, R, B) plane of exit-pop
+// durations because Mosaic has no scatter, and the host scatters it into
+// the trip histogram.  Here the thread that owns an env owns its column
+// of trip_hist, so each exit-road pop adds 1 to its bin in place: no
+// event plane, no atomics.  The telemetry is a template flag, compiled
+// out of the training launch.
 //
 // Design: one thread per env runs the W-tick loop.  The state planes are
 // read and written in place in device memory, indexed [..., b], so a
@@ -60,6 +69,8 @@ struct WindowArgs {
   float* rew_sum;
   float* last_rew;
   int* last_passed;
+  int* trip_hist;  // (nb, B) validate mode only
+  float* light;    // (I, B) validate mode only
   const int* nxt;
   const int* prev;
   const int* dest;
@@ -69,7 +80,7 @@ struct WindowArgs {
   long long car_rstride;  // elements from one road's plane to the next
   int B, R, Rt, I, W, Ks, Kc, E;
   int n_renew, slot_first, slot_renew, slot_entry, slot_phase;
-  int autoreset, device_spawns, learn_switch, yellow;
+  int autoreset, device_spawns, learn_switch, yellow, emit_trips, nb;
   float length, rate, lam, detect_x, thresh, eps, penalty;
   float c_a, c_t, c_s0, c_l, c_v0, spawn_v, spawn_x, den0;
 };
@@ -141,6 +152,7 @@ __device__ __forceinline__ int crossing(const WindowArgs& a, const float* X,
   return c;
 }
 
+template <bool EMIT>
 __global__ void window_kernel(const WindowArgs a) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
@@ -176,6 +188,13 @@ __global__ void window_kernel(const WindowArgs a) {
     for (int t = 0; t < a.Rt; ++t) ROW(a.waiting, t) = 0;
     steps = 0;
     done = 0;
+  }
+  if constexpr (EMIT) {
+    // after the lazy reset: restarted lanes report their new phase
+    for (int i = 0; i < a.I; ++i) {
+      const int changed = ROW(a.phase, i) != a.action[i * B + b];
+      ROW(a.light, i) = (float)((ROW(a.elapsed, i) + 1) * changed) * 0.5f;
+    }
   }
   for (int t = 0; t < a.Rt; ++t) {
     ROW(a.acc_passed, t) = 0;
@@ -327,6 +346,18 @@ __global__ void window_kernel(const WindowArgs a) {
       const float fx = CAR(X, f, ldf), fv = CAR(V, f, ldf),
                   fw = CAR(Wc, f, ldf);
       const float tail = CAR(X, f, lcf);
+      if constexpr (EMIT) {
+        if (f >= a.Rt) {  // an exit road: its crossing cars leave the map
+          for (int k = 1; k <= cnt; ++k) {
+            const float wk = CAR(Wc, f, mod_s(ldf + k));
+            // clamp before the cast: casting +-inf to int is undefined
+            const int dur = steps - (int)(wk < 0.0f ? 0.0f
+                                          : (wk > 1e9f ? 1e9f : wk));
+            const int bin = dur < 0 ? 0 : (dur > a.nb - 1 ? a.nb - 1 : dur);
+            a.trip_hist[(long long)bin * B + b] += 1;
+          }
+        }
+      }
       for (int k = 1; k <= cnt; ++k) {
         const int s = mod_s(ldf + k);
         CAR(X, f, s) = fx;
@@ -392,6 +423,9 @@ extern "C" int window_launch(WindowArgs a, void* stream) {
   if (a.E > MAX_E || a.I > MAX_I) return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const int blocks = (a.B + threads - 1) / threads;
-  window_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  if (a.emit_trips)
+    window_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  else
+    window_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

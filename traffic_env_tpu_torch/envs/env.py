@@ -29,6 +29,11 @@ class EnvState:
     def replace(self, **kw) -> "EnvState":
         return dataclasses.replace(self, **kw)
 
+    def clone(self) -> "EnvState":
+        """A copy whose simulator state and history share no tensor with
+        this one (the read-only schedule is shared)."""
+        return self.replace(sim=self.sim.clone(), history=self.history.clone())
+
 
 def _ordered_mean(vec: torch.Tensor, n: int) -> torch.Tensor:
     """Left-to-right float32 mean over the leading axis of length ``n``,

@@ -21,9 +21,11 @@ N_ROWS = 3
 
 def init_state_compact(topo: GridRoad, n_envs: int,
                        generator: torch.Generator | None = None,
-                       device="cuda") -> SimState:
+                       device="cuda", n_trip_bins: int = 0) -> SimState:
     """A fresh, empty batched state (pre-reset).  Each env's Philox
-    ``seed`` is drawn from ``generator`` (on the generator's device)."""
+    ``seed`` is drawn from ``generator`` (on the generator's device).
+    ``n_trip_bins > 0`` attaches the validate-mode trip-time histogram,
+    i32 (n_trip_bins, n_envs)."""
     dev = torch.device(device)
     R, Rt, I = topo.roads, topo.train_roads, topo.intersections
     B = int(n_envs)
@@ -42,7 +44,8 @@ def init_state_compact(topo: GridRoad, n_envs: int,
         steps=zi(B), global_tick=zi(B),
         spawn_gap=torch.full((B,), -1, dtype=torch.int32, device=dev),
         spawn_backlog=zi(B), seed=seed,
-        done=torch.zeros((B,), dtype=torch.bool, device=dev))
+        done=torch.zeros((B,), dtype=torch.bool, device=dev),
+        trip_hist=zi(n_trip_bins, B) if n_trip_bins else None)
 
 
 def reset(sim: SimState, phase=None,
@@ -50,7 +53,8 @@ def reset(sim: SimState, phase=None,
     """Empty every ring (slot 0 becomes the +inf fake leader), zero the
     episode counters and set the light phase: ``phase`` (I, B), or drawn
     from ``generator``.  The arrival stream (gap, backlog, global tick),
-    the seed and ``detected`` persist.  Returns a new state."""
+    the seed, ``detected`` and ``trip_hist`` persist (as the same
+    tensors).  Returns a new state."""
     dev = sim.cars.device
     I, B = sim.phase.shape
     if phase is None:

@@ -7,6 +7,10 @@ autoreset of finished lanes folded into the window.  Reward shaping
 (Remi, Localize, Squish) and history stacking are plain torch ops on
 the small ``(I, B)`` / ``(obs_dim, B)`` window outputs.
 
+In validate mode (``cfg.mode == "validate"``) ``init`` attaches the
+trip-time histogram, every window adds to it, and every step returns
+``{"light_times": (I, B)}`` as its info; otherwise the info is None.
+
 On a CUDA device the window is the kernel ``csrc/window.cu``; on the
 CPU it is the kernel's plain PyTorch version.  A CUDA env never falls
 back to the CPU: it raises when there is no card or no kernel.
@@ -76,6 +80,7 @@ def make_batched_env(topo: GridRoad, cfg: Config, n_envs: int,
         max_spawns_per_tick = 4 if on_device_spawns else 8
     Rt, I = topo.train_roads, topo.intersections
     k_hist = max(int(cfg.history), 1)
+    validate = cfg.mode == "validate"
     obs_dim = 2 * Rt + I + (Rt if cfg.occupancy_obs else 0)
     kw = dict(on_device_spawns=on_device_spawns,
               max_spawns_per_tick=max_spawns_per_tick)
@@ -94,7 +99,7 @@ def make_batched_env(topo: GridRoad, cfg: Config, n_envs: int,
         return obs
 
     def shaped(state: EnvState, action, sched, kern, noh=False):
-        sim, obs, rew, done, _ = kern(state.sim, action, sched)
+        sim, obs, rew, done, light_secs = kern(state.sim, action, sched)
         obs = window_obs(sim, obs)
         if cfg.remi:
             sim, rew = fast_core.remi(topo, sim, remi_tables)
@@ -102,8 +107,9 @@ def make_batched_env(topo: GridRoad, cfg: Config, n_envs: int,
             rew = localize_reward(rew, cfg.local_weight, I)
         if cfg.squish_rewards:
             rew = _ordered_mean(rew, I)[None]
+        info = {"light_times": light_secs} if validate else None
         if noh:
-            return state.replace(sim=sim), obs, rew, done, None
+            return state.replace(sim=sim), obs, rew, done, info
         if k_hist > 1:
             history = torch.cat([state.history[1:], obs[None]])
             out = history
@@ -111,10 +117,12 @@ def make_batched_env(topo: GridRoad, cfg: Config, n_envs: int,
             history = obs[None]
             out = obs
         return EnvState(sim=sim, history=history,
-                        sched=state.sched), out, rew, done, None
+                        sched=state.sched), out, rew, done, info
 
     def init(generator: torch.Generator | None = None) -> EnvState:
-        sim = fast_core.init_state_compact(topo, n_envs, generator, dev)
+        sim = fast_core.init_state_compact(
+            topo, n_envs, generator, dev,
+            n_trip_bins=cfg.episode_ticks + 2 if validate else 0)
         hist = torch.zeros((k_hist, obs_dim, n_envs), dtype=torch.float32,
                            device=dev)
         return EnvState(sim=sim, history=hist)

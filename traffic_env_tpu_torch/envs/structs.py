@@ -40,9 +40,17 @@ class SimState:
     # package carries a threefry key here instead (field ``key``).
     seed: torch.Tensor
     done: torch.Tensor         # bool (B,) overflow flag
+    # i32 (episode_ticks + 2, B) validate-mode trip-time histogram in
+    # ticks, one column per env; None outside validate mode
+    trip_hist: torch.Tensor | None = None
 
     def replace(self, **kw) -> "SimState":
         return dataclasses.replace(self, **kw)
+
+    def clone(self) -> "SimState":
+        """A copy that shares no tensor with this state."""
+        return self.replace(**{k: v.clone() for k, v in vars(self).items()
+                               if v is not None})
 
 
 @dataclasses.dataclass

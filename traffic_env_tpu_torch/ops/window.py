@@ -8,10 +8,12 @@ the hand-written kernel ``csrc/window.cu`` through
 ``ops/window_cuda.py``, or raises.  Both update the state's tensors in
 place, as the Pallas kernel aliases its state inputs to its outputs.
 
-This slice covers the benchmark path: one car archetype (k = 1), spawns
-from schedule rows or from the device's Poisson renewal chain with its
-backlog, and the lazy autoreset.  Trip telemetry, k>1 archetypes,
-decel_penalty and regular device spawns are not ported yet and raise.
+The port covers one car archetype (k = 1), spawns from schedule rows or
+from the device's Poisson renewal chain with its backlog, the lazy
+autoreset, and validate mode's trip telemetry (``emit_trips``: the
+window's light times and the trip-time histogram of the cars that leave
+the map).  k>1 archetypes, decel_penalty and regular device spawns are
+not ported yet and raise.
 
 Float discipline, shared with the kernel: every product feeding an add
 is kept a separate rounding (``_nn``/``_fin`` clamps, no FMA in the
@@ -85,6 +87,9 @@ class WindowSpec:
     lam: float
     learn_switch: bool
     on_device_spawns: bool
+    # validate mode: light times out, exit-pop trip durations binned
+    # into the state's trip_hist
+    emit_trips: bool
     nxt: np.ndarray
     prev: np.ndarray
     dest: np.ndarray
@@ -114,9 +119,6 @@ def make_window_spec(topo: GridRoad, cfg: Config,
                      on_device_spawns: bool = True,
                      max_spawns_per_tick: int = 8,
                      max_crossings_per_tick: int = 4) -> WindowSpec:
-    if cfg.mode == "validate":
-        raise NotImplementedError("trip telemetry (validate mode) is not "
-                                  "ported to the window yet")
     if cfg.decel_penalty:
         raise NotImplementedError("decel_penalty is not ported yet")
     if on_device_spawns and not cfg.poisson:
@@ -137,6 +139,7 @@ def make_window_spec(topo: GridRoad, cfg: Config,
         lam=f(1.0 / (cfg.cars_per_sec * cfg.rate)),
         learn_switch=bool(cfg.learn_switch),
         on_device_spawns=bool(on_device_spawns),
+        emit_trips=cfg.mode == "validate",
         nxt=topo.nxt.copy(), prev=topo.prev.copy(), dest=topo.dest.copy(),
         phase_group=topo.phase_group.copy(),
         entry=np.asarray(topo.entrypoints, np.int32).copy(),
@@ -149,12 +152,16 @@ def make_window_spec(topo: GridRoad, cfg: Config,
 
 def window_reference(spec: WindowSpec, d: dict, action: torch.Tensor,
                      spawn_rows: torch.Tensor | None, seed: torch.Tensor,
-                     autoreset: bool):
+                     autoreset: bool, trip_hist: torch.Tensor | None = None,
+                     light: torch.Tensor | None = None):
     """Plain PyTorch version of the window kernel: plane ops over
     (R, RING, B) car planes, one tick at a time.  ``d`` holds the state
     under STATE_KEYS (updated in place); ``action`` i32 (I, B);
     ``spawn_rows`` i32 (W, Ks, B) entry indices (-1 = none) in schedule
-    mode, None in device mode; ``seed`` i32 (B,).  Returns
+    mode, None in device mode; ``seed`` i32 (B,).  With
+    ``spec.emit_trips``, ``light`` f32 (I, B) receives the light times
+    and the durations of the cars popped off exit roads are added to
+    ``trip_hist`` i32 (nb, B), both in place.  Returns
     (acc_passed, rew_sum, last_rew, last_passed)."""
     S, R, Rt, I = RING, spec.R, spec.Rt, spec.I
     Ks, Kc = spec.Ks, spec.Kc
@@ -224,6 +231,13 @@ def window_reference(spec: WindowSpec, d: dict, action: torch.Tensor,
             rphase = _hash_phase(gtick, I)
         phase = torch.where(rs, rphase, phase)
         done = torch.where(rs, False, done)
+
+    if spec.emit_trips:
+        # after the lazy reset: restarted lanes report their new phase
+        light.copy_(((elapsed + 1) * (phase != action).to(I32)).to(F32)
+                    * 0.5)
+        nb = trip_hist.shape[0]
+        is_exit = ~is_train.bool()
 
     acc_passed = torch.zeros((Rt, B), dtype=I32, device=dev)
     rew_sum = torch.zeros((I, B), dtype=F32, device=dev)
@@ -349,6 +363,16 @@ def window_reference(spec: WindowSpec, d: dict, action: torch.Tensor,
             w_k.append(at(w, leading + k))
         fake_xr, fake_vr, fake_wr = at(x, leading), at(v, leading), \
             at(w, leading)
+        if spec.emit_trips:
+            # the TPU kernel's exit-pop events, scattered per tick: each
+            # car popped off an exit road of a live lane leaves the map
+            # after steps - w ticks (w clamped before the cast: the row
+            # of a slot that does not cross may hold +-inf; masked out)
+            for k in range(Kc):
+                ev = (count >= k + 1) & is_exit & live[None, :]
+                dur = steps[None, :] - torch.clamp(w_k[k], 0.0, 1e9).to(I32)
+                trip_hist.scatter_add_(0, torch.clamp(dur, 0, nb - 1).long(),
+                                       ev.to(I32))
         pop_mask = (dL >= 1) & (dL <= count[:, None, :])
         tail_x2 = at(x, lastcar)
         x = torch.where(pop_mask, fake_xr[:, None, :], x)
@@ -414,18 +438,21 @@ def window_reference(spec: WindowSpec, d: dict, action: torch.Tensor,
 
 
 def window(spec: WindowSpec, d: dict, action, spawn_rows, seed,
-           autoreset: bool):
+           autoreset: bool, trip_hist=None, light=None):
     """One light period for the batch in ``d`` (updated in place):
     :func:`window_reference` on a CPU state, the CUDA kernel on a CUDA
-    state.  Returns (acc_passed, rew_sum, last_rew, last_passed)."""
+    state.  ``trip_hist`` and ``light`` are required with
+    ``spec.emit_trips`` (see :func:`window_reference`).  Returns
+    (acc_passed, rew_sum, last_rew, last_passed)."""
     dev = d["x"].device
     if dev.type == "cpu":
         return window_reference(spec, d, action, spawn_rows, seed,
-                                autoreset)
+                                autoreset, trip_hist, light)
     if dev.type != "cuda":
         raise RuntimeError(f"the window runs on cpu or cuda, not {dev}")
     from . import window_cuda
-    return window_cuda.window(spec, d, action, spawn_rows, seed, autoreset)
+    return window_cuda.window(spec, d, action, spawn_rows, seed, autoreset,
+                              trip_hist, light)
 
 
 def sim_to_dict(sim) -> dict:
@@ -481,7 +508,10 @@ def make_repeater_window(topo: GridRoad, cfg: Config,
     call per agent step.  ``autoreset=True`` folds the lazy reset of
     finished lanes into the window.  Returns
     ``repeater_step(sim, action, sched=None) -> (sim, obs, rew_sum,
-    done, None)``; the window updates ``sim``'s tensors in place."""
+    done, light_secs)``; the window updates ``sim``'s tensors in place.
+    In validate mode ``light_secs`` is f32 (I, B) and the window adds
+    its trip durations to ``sim.trip_hist``, which must be attached;
+    otherwise ``light_secs`` is None."""
     spec = make_window_spec(topo, cfg, on_device_spawns,
                             max_spawns_per_tick)
 
@@ -491,9 +521,17 @@ def make_repeater_window(topo: GridRoad, cfg: Config,
             rows = build_spawn_rows(sched, sim.global_tick, spec.W,
                                     spec.Ks, topo)
         done0 = None if autoreset else sim.done.clone()
+        light = None
+        if spec.emit_trips:
+            if sim.trip_hist is None:
+                raise ValueError("validate mode needs sim.trip_hist: make "
+                                 "the state with n_trip_bins > 0")
+            light = torch.empty(sim.phase.shape, dtype=F32,
+                                device=sim.phase.device)
         d = sim_to_dict(sim)
         acc_passed, rew_sum, last_rew, last_passed = window(
-            spec, d, action.to(I32).contiguous(), rows, sim.seed, autoreset)
+            spec, d, action.to(I32).contiguous(), rows, sim.seed, autoreset,
+            sim.trip_hist, light)
         if autoreset:
             passed_new, rew_new = last_passed, last_rew
         else:
@@ -504,6 +542,6 @@ def make_repeater_window(topo: GridRoad, cfg: Config,
         mult = (2 * sim.phase - 1).to(F32)
         obs = torch.cat([acc_passed.to(F32), sim.detected.to(F32),
                          sim.elapsed.to(F32) * 0.01 * mult])
-        return sim, obs, rew_sum, sim.done.clone(), None
+        return sim, obs, rew_sum, sim.done.clone(), light
 
     return repeater_step

@@ -5,7 +5,9 @@ on a CUDA state.  The kernel launches on PyTorch's current stream,
 allocates nothing and updates the state tensors in place; this wrapper
 allocates the window outputs, checks every tensor's device, dtype,
 shape and layout, and raises when the launch is refused.  ``launches``
-counts the kernel's launches.
+counts the launches of the training variant, ``telemetry_launches``
+those of the validate-mode variant (``spec.emit_trips``), which also
+writes the light times and adds to the trip-time histogram.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from . import _build
 from .window import WindowSpec
 
 launches = 0
+telemetry_launches = 0
 _lib = None
 
 _P = ctypes.c_void_p
@@ -33,13 +36,14 @@ class _Args(ctypes.Structure):
         "x", "v", "w", "leading", "lastcar", "phase", "elapsed", "waiting",
         "detected", "passed_dst", "gap", "backlog", "steps", "gtick", "done",
         "seed", "action", "spawn_rows", "acc_passed", "rew_sum", "last_rew",
-        "last_passed", "nxt", "prev", "dest", "phase_group", "entry",
-        "order")]
+        "last_passed", "trip_hist", "light", "nxt", "prev", "dest",
+        "phase_group", "entry", "order")]
         + [("car_rstride", ctypes.c_longlong)]
         + [(n, _I) for n in (
             "B", "R", "Rt", "I", "W", "Ks", "Kc", "E", "n_renew",
             "slot_first", "slot_renew", "slot_entry", "slot_phase",
-            "autoreset", "device_spawns", "learn_switch", "yellow")]
+            "autoreset", "device_spawns", "learn_switch", "yellow",
+            "emit_trips", "nb")]
         + [(n, _F) for n in (
             "length", "rate", "lam", "detect_x", "thresh", "eps", "penalty",
             "c_a", "c_t", "c_s0", "c_l", "c_v0", "spawn_v", "spawn_x",
@@ -84,10 +88,12 @@ def _check(name, t, dev, dtype, shape):
 
 
 def window(spec: WindowSpec, d: dict, action, spawn_rows, seed,
-           autoreset: bool):
+           autoreset: bool, trip_hist=None, light=None):
     """Launch one window on the CUDA state ``d`` (updated in place).
-    Returns (acc_passed, rew_sum, last_rew, last_passed)."""
-    global launches
+    With ``spec.emit_trips``, ``trip_hist`` i32 (nb, B) and ``light`` f32
+    (I, B) are required and updated in place; otherwise they must be
+    None.  Returns (acc_passed, rew_sum, last_rew, last_passed)."""
+    global launches, telemetry_launches
     dev = d["x"].device
     if dev.type != "cuda":
         raise ValueError(f"window_cuda needs a CUDA state, got {dev}")
@@ -122,6 +128,18 @@ def window(spec: WindowSpec, d: dict, action, spawn_rows, seed,
     else:
         _check("spawn_rows", spawn_rows, dev, i32, (W, Ks, B))
         rows_ptr = spawn_rows.data_ptr()
+    if spec.emit_trips:
+        if trip_hist is None or light is None:
+            raise ValueError("the telemetry window needs trip_hist and light")
+        nb = trip_hist.shape[0] if trip_hist.dim() == 2 else 0
+        _check("trip_hist", trip_hist, dev, i32, (max(nb, 1), B))
+        _check("light", light, dev, torch.float32, (I, B))
+        th_ptr, light_ptr = trip_hist.data_ptr(), light.data_ptr()
+    elif trip_hist is not None or light is not None:
+        raise ValueError("trip_hist/light given to a window without "
+                         "telemetry")
+    else:
+        nb, th_ptr, light_ptr = 0, None, None
     topo = _topology(spec, dev)
     if len(spec.entry) > 64 or I > 64:
         raise ValueError("the window kernel takes at most 64 entry roads "
@@ -139,13 +157,13 @@ def window(spec: WindowSpec, d: dict, action, spawn_rows, seed,
                            "gap", "backlog", "steps", "gtick", "done")),
         seed.data_ptr(), action.data_ptr(), rows_ptr,
         acc_passed.data_ptr(), rew_sum.data_ptr(), last_rew.data_ptr(),
-        last_passed.data_ptr(),
+        last_passed.data_ptr(), th_ptr, light_ptr,
         *(topo[k].data_ptr() for k in ("nxt", "prev", "dest", "phase_group",
                                        "entry", "order")),
         rstride, B, R, Rt, I, W, Ks, spec.Kc, len(spec.entry), sl.n_renew,
         sl.first, sl.renew, sl.entry, sl.phase, int(autoreset),
         int(spec.on_device_spawns), int(spec.learn_switch), YELLOW_TICKS,
-        spec.length, spec.rate, spec.lam,
+        int(spec.emit_trips), nb, spec.length, spec.rate, spec.lam,
         spec.length - float(DETECT_RANGE), float(THRESH), float(EPS),
         float(OVERFLOW_PENALTY), spec.c_a, spec.c_t, spec.c_s0, spec.c_l,
         spec.c_v0, spec.spawn_v, spec.spawn_x, spec.den0)
@@ -154,5 +172,8 @@ def window(spec: WindowSpec, d: dict, action, spawn_rows, seed,
         rc = lib.window_launch(args, stream)
     if rc != 0:
         raise RuntimeError(f"window kernel launch failed: CUDA error {rc}")
-    launches += 1
+    if spec.emit_trips:
+        telemetry_launches += 1
+    else:
+        launches += 1
     return acc_passed, rew_sum, last_rew, last_passed

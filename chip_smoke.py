@@ -35,7 +35,27 @@ Phases, one JSON line each:
    launches must equal the windows it ran, by variant; the loss must
    be finite and the validation must return trip and light times.  Then
    a timed training episode: agent-step ms and env-steps/s.
-8. timing: each variant's time per window by CUDA events, the plain
+8. variant_parity: the decel_penalty, regular-spawn and k > 1
+   (two-archetype) variants against their plain version on the card,
+   3x3 grid, 4096 envs, 50 windows, autoreset on: decel with schedule
+   rows, regular with device spawns, k2 with schedule rows (and their
+   archetype rows) and with device spawns, and k2 + decel + telemetry
+   with schedule rows.  Every state leaf bit-equal.
+9. baselines: greedy through ``run_alg`` at 3x3, 4096 envs, 120 agent
+   steps an episode: 3 training episodes, one ``mode="validate"``
+   episode, one with ``poisson=False`` and one with ``decel_penalty=True,
+   remi=False``; each run's launches must equal its windows, by variant,
+   and every reward must be finite.  Then a timed greedy episode
+   (agent-step ms), and greedy beside qlearn's validation rewards:
+   counted to each env's first done as qlearn counts, and as the bar
+   of the JAX package's learning_curve.py (greedy on qlearn's config).
+10. k2: ``random_rollout`` through ``make_batched_env(archetypes=TWO)``
+   at 4096 envs, device spawns, 120 timed agent steps: env-steps/s, the
+   truck share of the cars on the roads, launches == windows.
+11. profile: torch.profiler over 120 bench agent steps and one greedy
+   episode: device time of the window kernel and of all kernels per
+   agent step, and the device's idle share.
+12. timing: each variant's time per window by CUDA events, the plain
    version's, and the bound from this run's bytes and operations.
 
 Then the ``kernels`` line, the nvidia-smi line, and last the ``ok``
@@ -58,8 +78,11 @@ import time
 import numpy as np
 import torch
 
-from traffic_env_tpu_torch.algorithms import qlearn, run_alg
+from traffic_env_tpu_torch import constants as C
+from traffic_env_tpu_torch.algorithms import baselines, qlearn, run_alg
+from traffic_env_tpu_torch.algorithms.common import build_env
 from traffic_env_tpu_torch.config import Config, derive_spawn_rate
+from traffic_env_tpu_torch.constants import RING
 from traffic_env_tpu_torch.envs import fast_core
 from traffic_env_tpu_torch.envs.rollout import (bind_schedule,
                                                 make_batched_env,
@@ -67,8 +90,8 @@ from traffic_env_tpu_torch.envs.rollout import (bind_schedule,
 from traffic_env_tpu_torch.envs.structs import SpawnSchedule
 from traffic_env_tpu_torch.interop import sim_to_arrays
 from traffic_env_tpu_torch.ops import _build, window_cuda
-from traffic_env_tpu_torch.ops.window import (STATE_KEYS, make_window_spec,
-                                              sim_to_dict, window_reference)
+from traffic_env_tpu_torch.ops.window import (make_window_spec, sim_to_dict,
+                                              window_reference)
 from traffic_env_tpu_torch.topology import GridRoad
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the
@@ -76,14 +99,49 @@ from traffic_env_tpu_torch.topology import GridRoad
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 # float operations per car and tick in csrc/window.cu's IDM update
-# (multiplies, divides, adds, clamps and compares, counted in the source)
+# (multiplies, divides, adds, clamps and compares, counted in the source);
+# decel adds one compare, k > 1 the per-car a * b, square root, doubling
+# and the two products by the run-time 1.0
 IDM_OPS_PER_CAR_TICK = 37
+IDM_OPS_PER_CAR_TICK_DECEL = 38
+IDM_OPS_PER_CAR_TICK_K2 = 42
 N_ENVS = 4096
 DEVICE = "cuda"
+SOURCE = "traffic_env_tpu_torch/csrc/window.cu"
+REPLACES = "traffic_env_tpu/ops/pallas_window.py:97"
+
+
+def two_archetypes():
+    """The shipped car and a slow 7 m truck with softer acceleration and
+    larger gaps (delta 4): the JAX package's two-row test table."""
+    t = np.zeros((2, C.NPARAMS), np.float32)
+    t[0] = C.ARCHETYPES[0]
+    t[1, [C.V, C.A, C.DELTA, C.V0, C.L, C.B, C.T, C.S0]] = \
+        [8.0, 2.0, 4.0, 9.5, 7.0, 4.0, 2.5, 2.0]
+    return t
+
+
+TWO = two_archetypes()
 
 
 class SmokeFailure(Exception):
     pass
+
+
+# path -> {kernel variant: launches} of that path's run
+PATH_LAUNCHES: dict = {}
+
+
+def check_launches(path, expected):
+    """Record the launch counts of the run just ended (the counts were
+    set to 0 just before it) and hold them to ``expected``, {variant:
+    windows}: every window one launch of its variant, nothing else."""
+    torch.cuda.synchronize()
+    got = dict(window_cuda.launches)
+    PATH_LAUNCHES[path] = got
+    if got != expected:
+        raise SmokeFailure(f"{path}: launches {got}, windows {expected}")
+    return got
 
 
 def emit(obj):
@@ -120,24 +178,31 @@ def leaf_diff(a, b):
 
 def schedule_rows(rng, cfg, spec, E, B, dev):
     """One window of schedule rows (W, Ks, B) from a numpy Poisson
-    stream: count per tick capped at Ks, entry index uniform."""
+    stream: count per tick capped at Ks, entry index uniform; with a
+    k > 1 table also the archetype rows, uniform."""
     cnt = np.minimum(rng.poisson(cfg.cars_per_sec * cfg.rate,
                                  (spec.W, B)), spec.Ks)
     e = rng.randint(E, size=(spec.W, spec.Ks, B)).astype(np.int32)
     e[np.arange(spec.Ks)[None, :, None] >= cnt[:, None, :]] = -1
-    return torch.as_tensor(e, device=dev)
+    if spec.k == 1:
+        return torch.as_tensor(e, device=dev), None
+    a = rng.randint(spec.k, size=(spec.W, spec.Ks, B)).astype(np.int32)
+    return torch.as_tensor(e, device=dev), torch.as_tensor(a, device=dev)
 
 
 def parity_case(name, topo, cfg, n_windows, device_spawns, autoreset, Ks,
-                seed, all_red=False, telemetry=False):
+                seed, all_red=False, telemetry=False, archetypes=None,
+                phase_name=None):
     """The kernel against its plain version from one reset; with
     ``telemetry`` the validate-mode variant, its light times and its
-    trip-time histogram included."""
+    trip-time histogram included; with ``archetypes`` the k > 1 variant
+    and its archetype plane."""
     dev = torch.device(DEVICE)
     B, I, E = N_ENVS, topo.intersections, len(topo.entrypoints)
     if telemetry:
         cfg = cfg.replace(mode="validate")
-    spec = make_window_spec(topo, cfg, device_spawns, Ks)
+    spec = make_window_spec(topo, cfg, device_spawns, Ks,
+                            archetypes=archetypes)
     tel_k = tel_p = (None, None)
     if telemetry:
         th = torch.zeros((cfg.episode_ticks + 2, B), dtype=torch.int32,
@@ -148,7 +213,8 @@ def parity_case(name, topo, cfg, n_windows, device_spawns, autoreset, Ks,
     rng = np.random.RandomState(seed)
     gen = torch.Generator()
     gen.manual_seed(seed)
-    sim = fast_core.init_state_compact(topo, B, gen, dev)
+    sim = fast_core.init_state_compact(
+        topo, B, gen, dev, rows=fast_core.n_car_rows(archetypes))
     phase = np.zeros((I, B), np.int32) if all_red else \
         rng.randint(2, size=(I, B)).astype(np.int32)
     sim = fast_core.reset(sim, torch.as_tensor(phase))
@@ -159,15 +225,15 @@ def parity_case(name, topo, cfg, n_windows, device_spawns, autoreset, Ks,
         a = np.zeros((I, B), np.int32) if all_red else \
             rng.randint(2, size=(I, B)).astype(np.int32)
         action = torch.as_tensor(a, device=dev)
-        rows = None if device_spawns else \
+        rows, arows = (None, None) if device_spawns else \
             schedule_rows(rng, cfg, spec, E, B, dev)
         if autoreset:
             lanes_reset += int(dk["done"].sum())
         out_k = window_cuda.window(spec, dk, action, rows, sim_k.seed,
-                                   autoreset, *tel_k)
+                                   autoreset, *tel_k, spawn_ai=arows)
         out_p = window_reference(spec, dp, action, rows, sim_p.seed,
-                                 autoreset, *tel_p)
-        pairs = [(k, dk[k], dp[k]) for k in STATE_KEYS] + list(zip(
+                                 autoreset, *tel_p, spawn_ai=arows)
+        pairs = [(k, dk[k], dp[k]) for k in dk] + list(zip(
             ("acc_passed", "rew_sum", "last_rew", "last_passed"),
             out_k, out_p))
         if telemetry:
@@ -177,8 +243,9 @@ def parity_case(name, topo, cfg, n_windows, device_spawns, autoreset, Ks,
             if not eq:
                 unequal.add(k)
                 max_err = max(max_err, err)
-    row = {"phase": "telemetry_parity" if telemetry else "parity",
-           "case": name, "envs": B,
+    row = {"phase": phase_name or ("telemetry_parity" if telemetry
+                                   else "parity"),
+           "case": name, "variant": spec.variant, "envs": B,
            "windows": n_windows, "autoreset": autoreset,
            "spawns": "device" if device_spawns else "schedule",
            "lanes_reset" if autoreset else "lanes_done_at_end":
@@ -188,6 +255,14 @@ def parity_case(name, topo, cfg, n_windows, device_spawns, autoreset, Ks,
            "max_abs_err": max_err}
     if telemetry:
         row["exit_pops"] = int(tel_k[0].sum())
+    if spec.k > 1:
+        live = cars_mask(sim_k)
+        row["truck_share_on_roads"] = float(
+            (dk["ai"][live] == 1.0).float().mean()) if live.any() else None
+    if spec.decel_penalty:
+        # a reward that is no multiple of 0.5 shows the decel terms fired
+        r = out_k[1]
+        row["non_dyadic_rewards"] = int((r * 2 != torch.round(r * 2)).sum())
     emit(row)
     if unequal:
         raise SmokeFailure(f"kernel != plain version in case {name}: "
@@ -215,6 +290,38 @@ def parity_phase():
     if row["lanes_reset"] < 1:
         raise SmokeFailure("overflow scenario reset no lane")
     rows.append(row)
+    return rows
+
+
+def cars_mask(sim):
+    """(R, RING, B) True at the ring slots that hold a car."""
+    d = (torch.arange(RING, device=sim.leading.device)[None, :, None]
+         - sim.leading[:, None, :]) % RING
+    return (d >= 1) & (d <= fast_core.cars_per_road(sim)[:, None, :])
+
+
+def variant_parity_phase():
+    topo = GridRoad(3, 3, 250.0)
+    cfg = bench_config(topo)
+    decel = dict(decel_penalty=True, remi=False)
+    cases = [
+        ("3x3_decel_schedule_autoreset_on", cfg.replace(**decel), False,
+         False, None),
+        ("3x3_regular_device_autoreset_on", cfg.replace(poisson=False),
+         True, False, None),
+        ("3x3_k2_schedule_autoreset_on", cfg, False, False, TWO),
+        ("3x3_k2_device_autoreset_on", cfg, True, False, TWO),
+        ("3x3_k2_decel_validate_schedule_autoreset_on",
+         cfg.replace(**decel), False, True, TWO)]
+    rows = []
+    for i, (name, c, device_spawns, tel, arch) in enumerate(cases):
+        row = parity_case(name, topo, c, 50, device_spawns, True,
+                          4 if device_spawns else 8, seed=40 + i,
+                          telemetry=tel, archetypes=arch,
+                          phase_name="variant_parity")
+        if row.get("non_dyadic_rewards") == 0:
+            raise SmokeFailure(f"no decel term in case {name}")
+        rows.append(row)
     return rows
 
 
@@ -279,7 +386,7 @@ def bench_phase(card):
     benv = make_batched_env(topo, cfg, N_ENVS, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    window_cuda.launches = window_cuda.telemetry_launches = 0
+    window_cuda.launches.clear()
     state = benv.init(gen)
     state, obs = benv.reset(state)
     state, gen, rews, dones = random_rollout(benv, state, gen, warmup)
@@ -295,8 +402,8 @@ def bench_phase(card):
         rate = agent_steps * cfg.light_iterations * N_ENVS / dt
         runs.append(rate)
         best = max(best, rate)
-    launches = window_cuda.launches
     windows = 1 + cfg.warmup_lights + warmup + repeats * agent_steps
+    launches = check_launches("bench", {"window": windows})["window"]
     obs_ok = (tuple(obs.shape) == (benv.obs_dim, N_ENVS)
               and bool(torch.isfinite(obs).all())
               and bool(torch.isfinite(rews).all()) and fetched == fetched)
@@ -304,22 +411,21 @@ def bench_phase(card):
           "env_steps_per_s": best, "env_steps_per_s_runs": runs,
           "kernel_launches": launches, "windows_run": windows,
           "dones_last_run": int(dones.sum()), "outputs_finite": obs_ok})
-    if launches != windows:
-        raise SmokeFailure(f"kernel launched {launches} times for "
-                           f"{windows} windows")
     if not obs_ok:
         raise SmokeFailure("bench path produced non-finite or misshapen "
                            "output")
     return benv, state, launches, best
 
 
-def timing_phase(card, state, topo, cfg, telemetry):
-    """CUDA-event time per window of one variant of the kernel and of
-    its plain version on a copy of the bench state; bound from bytes
-    and ops.  The training variant also reads the batch scaling."""
+def timing_phase(card, state, topo, vcfg, archetypes=None):
+    """CUDA-event time per window of the variant of the kernel that
+    ``vcfg`` and ``archetypes`` select, device spawns, and of its plain
+    version, on a copy of ``state`` (the bench state, or the k2 phase's);
+    bound from bytes and ops.  The core variant also reads the batch
+    scaling."""
     dev = torch.device("cuda")
-    vcfg = cfg.replace(mode="validate") if telemetry else cfg
-    spec = make_window_spec(topo, vcfg, True, 4)
+    spec = make_window_spec(topo, vcfg, True, 4, archetypes=archetypes)
+    telemetry = spec.emit_trips
     I, B = topo.intersections, N_ENVS
     sim = state.sim.clone()
     d = sim_to_dict(sim)
@@ -383,25 +489,30 @@ def timing_phase(card, state, topo, cfg, telemetry):
     torch.cuda.synchronize()
     plain_ms = e0.elapsed_time(e1) / n_plain
     # bytes per window, each read once and written once: the car slots
-    # this run's windows held (x, v, w, 12 B a slot) plus each road's
-    # fake-leader slot, and the integer planes; seed and action read
-    # once, the four window outputs written once; with telemetry each
-    # touched trip_hist cell read and written once and light written
-    slot_bytes = 3 * 4
+    # this run's windows held (x, v, w and, with k > 1, ai: 12 or 16 B a
+    # slot) plus each road's fake-leader slot, and the integer planes;
+    # seed and action read once, the four window outputs written once;
+    # with telemetry each touched trip_hist cell read and written once
+    # and light written; with k > 1 the table, read once
+    car_planes = ("x", "v", "w", "ai")
+    slot_bytes = 4 * sum(k in d for k in car_planes)
     car_bytes = slot_bytes * (cars_read_pw + cars_written_pw
                               + 2 * topo.roads * B)
     int_bytes = sum(d[k].numel() * d[k].element_size()
-                    for k in STATE_KEYS if k not in ("x", "v", "w"))
-    in_bytes = sim.seed.numel() * 4 + acts[0].numel() * 4
+                    for k in d if k not in car_planes)
+    in_bytes = sim.seed.numel() * 4 + acts[0].numel() * 4 \
+        + (spec.arch.nbytes if spec.k > 1 else 0)
     out_bytes = (2 * topo.train_roads + 2 * I) * B * 4
     tel_bytes = cells_pw * 4 * 2 + I * B * 4 if telemetry else 0
     n_bytes = car_bytes + 2 * int_bytes + in_bytes + out_bytes + tel_bytes
     car_ticks = (cars_read_pw + cars_written_pw) / 2 * spec.W
-    n_ops = car_ticks * IDM_OPS_PER_CAR_TICK
+    n_ops = car_ticks * (IDM_OPS_PER_CAR_TICK_K2 if spec.k > 1
+                         else IDM_OPS_PER_CAR_TICK_DECEL
+                         if spec.decel_penalty else IDM_OPS_PER_CAR_TICK)
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = n_ops / PEAK_F32_PER_S * 1e3
-    row = {"phase": "timing", "variant": "window_telemetry" if telemetry
-           else "window", "card": card, "envs": B, "ms": ms,
+    row = {"phase": "timing", "variant": spec.variant, "card": card,
+           "envs": B, "ms": ms,
            "plain_ms": plain_ms, "bytes": n_bytes, "bytes_ms": bytes_ms,
            "f32_ops": n_ops, "ops_ms": ops_ms,
            "bound_ms": max(bytes_ms, ops_ms),
@@ -409,13 +520,14 @@ def timing_phase(card, state, topo, cfg, telemetry):
            "cars_on_roads": cars_after,
            "car_slots_read_per_window": cars_read_pw,
            "car_slots_written_per_window": cars_written_pw,
+           "slot_bytes": slot_bytes,
            "car_bytes": car_bytes, "int_bytes_each_way": int_bytes,
            "library_ms": None,
            "library_note": "no single PyTorch call computes this"}
     if telemetry:
         row.update(trip_hist_cells_per_window=cells_pw,
                    telemetry_bytes=tel_bytes)
-    else:
+    elif spec.variant == "window":
         row["ms_per_window_by_envs"] = batch_scaling(spec, sim, I, B, ms)
     emit(row)
     return row
@@ -450,7 +562,8 @@ def batch_scaling(spec, sim, I, B, ms):
 def qlearn_config(**kw):
     """The flagship trainer at the JAX package's default widths on
     4096 envs."""
-    return Config(trainer="qlearn", num_envs=N_ENVS, **kw).derive()
+    return Config(trainer="qlearn", num_envs=N_ENVS,
+                  platform="cpu" if DEVICE == "cpu" else "", **kw).derive()
 
 
 def read_metrics(logdir):
@@ -468,13 +581,11 @@ def qlearn_phase(card):
                             save_rate=1000, summary_rate=1, logdir=logdir)
         # windows: a reset is 1 + warmup + (history - 1) windows
         reset_w = 1 + cfg.warmup_lights + cfg.history - 1
-        window_cuda.launches = window_cuda.telemetry_launches = 0
+        window_cuda.launches.clear()
         t0 = time.perf_counter()
         ts = run_alg(cfg)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        train_launches = (window_cuda.launches,
-                          window_cuda.telemetry_launches)
         n_val = cfg.total_episodes // cfg.validate_rate
         train_windows = (reset_w + cfg.total_episodes * cfg.episode_len
                          + n_val * (reset_w + cfg.episode_len))
@@ -486,14 +597,11 @@ def qlearn_phase(card):
             "episodes": ts.episode, "agent_steps": ts.step,
             "sgd_steps": ts.train_steps, "seconds_with_setup": train_s,
             "losses": losses, "validation_rewards": val_r,
-            "kernel_launches": train_launches[0],
-            "telemetry_launches": train_launches[1],
+            "launches": dict(window_cuda.launches),
             "windows_run": train_windows,
             "files": sorted(os.listdir(logdir))}
         emit(train_row)
-        if train_launches != (train_windows, 0):
-            raise SmokeFailure(f"qlearn train launched {train_launches} for "
-                               f"{train_windows} windows")
+        check_launches("qlearn_train", {"window": train_windows})
         if not losses or not all(math.isfinite(x) for x in losses) \
                 or ts.train_steps < 1 or not val_r:
             raise SmokeFailure("qlearn train: no SGD step, no validation "
@@ -501,13 +609,11 @@ def qlearn_phase(card):
 
         vcfg = qlearn_config(mode="validate", restore=True,
                              total_episodes=1, logdir=logdir)
-        window_cuda.launches = window_cuda.telemetry_launches = 0
+        window_cuda.launches.clear()
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             lights, trips, unfinished = run_alg(vcfg)
         torch.cuda.synchronize()
-        val_launches = (window_cuda.launches,
-                        window_cuda.telemetry_launches)
         # make_state's reset, then the validation episode's reset + steps
         val_windows = 2 * reset_w + vcfg.episode_len
         reward = [float(x) for x in re.findall(r"Reward ([-0-9.e+]+)",
@@ -519,13 +625,10 @@ def qlearn_phase(card):
             "mean_trip_s": float(np.mean(trips)) if trips else None,
             "mean_light_s": float(np.mean(lights)) if lights else None,
             "unfinished_cars_per_env": unfinished,
-            "kernel_launches": val_launches[0],
-            "telemetry_launches": val_launches[1],
+            "launches": dict(window_cuda.launches),
             "windows_run": val_windows}
         emit(val_row)
-        if val_launches != (0, val_windows):
-            raise SmokeFailure(f"qlearn validate launched {val_launches} "
-                               f"for {val_windows} telemetry windows")
+        check_launches("qlearn_validate", {"window_telemetry": val_windows})
         if not trips or not lights or len(reward) != 1 \
                 or not math.isfinite(reward[0]):
             raise SmokeFailure("qlearn validate returned no telemetry or "
@@ -552,6 +655,233 @@ def qlearn_phase(card):
     if not all(math.isfinite(x) for x in stats):
         raise SmokeFailure("qlearn timing episode gave a non-finite stat")
     return train_row, val_row, row
+
+
+def greedy_config(**kw):
+    """The greedy baseline at the JAX package's default widths (3x3,
+    120 agent steps an episode) on 4096 envs."""
+    return Config(trainer="greedy", num_envs=N_ENVS,
+                  platform="cpu" if DEVICE == "cpu" else "", **kw).derive()
+
+
+def baselines_phase(card, qlearn_rewards):
+    """greedy through run_alg: train (3 episodes), validate, regular
+    spawns and decel_penalty (1 episode each), each with the launch
+    counts set to 0 just before it; then a timed greedy episode."""
+    runs = [("greedy_train", dict(total_episodes=3), "window"),
+            ("greedy_validate", dict(total_episodes=1, mode="validate"),
+             "window_telemetry"),
+            ("greedy_regular", dict(total_episodes=1, poisson=False),
+             "window_regular"),
+            ("greedy_decel", dict(total_episodes=1, decel_penalty=True,
+                                  remi=False), "window_decel")]
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_greedy_")
+    rows = {}
+    try:
+        for path, kw, variant in runs:
+            cfg = greedy_config(logdir=logdir, **kw)
+            window_cuda.launches.clear()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                lights, trips, unfinished = run_alg(cfg)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            # an episode is a reset (1 + warmup windows) and its steps
+            windows = cfg.total_episodes * (1 + cfg.warmup_lights
+                                            + cfg.episode_len)
+            rewards = [float(x) for x in re.findall(
+                r"^Reward ([-0-9.e+]+)", out.getvalue(), re.M)]
+            row = {"phase": "baselines", "run": path, "card": card,
+                   "envs": N_ENVS, "episodes": cfg.total_episodes,
+                   "rewards": rewards, "seconds_with_setup": seconds,
+                   "launches": dict(window_cuda.launches),
+                   "windows_run": windows}
+            if cfg.mode == "validate":
+                row.update(trip_times=len(trips), light_times=len(lights),
+                           mean_trip_s=float(np.mean(trips)) if trips
+                           else None,
+                           unfinished_cars_per_env=unfinished)
+            emit(row)
+            check_launches(path, {variant: windows})
+            if len(rewards) != cfg.total_episodes \
+                    or not all(math.isfinite(r) for r in rewards):
+                raise SmokeFailure(f"{path}: rewards {rewards}")
+            if cfg.mode == "validate" and not (trips and lights):
+                raise SmokeFailure("greedy validate returned no telemetry")
+            rows[path] = row
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+
+    # a timed greedy episode from a reset, after one warm-up episode
+    topo, gcfg, benv = build_env(greedy_config())
+    policy = baselines.make_policies(gcfg, benv, topo)["greedy"]
+    rollout, run_one = baselines.episode_runner(gcfg, benv, policy)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    env = run_one(benv.init(gen), gen)[0]
+    env, _ = benv.reset(env)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env, total, n1, n0, unfinished, _ = rollout(env, gen)  # fetches
+    dt = time.perf_counter() - t0
+    steps = gcfg.episode_len
+    timing = {"phase": "greedy_timing", "card": card, "envs": N_ENVS,
+              "agent_steps": steps, "seconds": dt,
+              "agent_step_ms": dt / steps * 1e3,
+              "env_steps_per_s": steps * gcfg.light_iterations * N_ENVS / dt,
+              "episode_reward": total, "ones_fraction": n1 / (n1 + n0),
+              "unfinished_cars_per_env": unfinished}
+    emit(timing)
+    env, _ = benv.reset(env)
+    masked = masked_episode_reward(gcfg, benv, policy, env, gen)
+    bar = greedy_bar_on_qlearn_workload()
+    emit({"phase": "greedy_vs_qlearn", "card": card, "envs": N_ENVS,
+          "greedy_train_rewards": rows["greedy_train"]["rewards"],
+          "greedy_validate_reward": rows["greedy_validate"]["rewards"][0],
+          "greedy_reward_counted_to_first_done": masked,
+          "greedy_bar_on_qlearn_workload": bar,
+          **qlearn_rewards})
+    if not all(math.isfinite(x) for x in (total, masked, bar)):
+        raise SmokeFailure("greedy timing episode gave a non-finite reward")
+    return rows, timing, (benv, rollout, env, gen)
+
+
+def greedy_bar_on_qlearn_workload(episodes=3):
+    """The bar a learner is held to, as the JAX package's
+    learning_curve.py:27-45 measures it: greedy's episode runner on the
+    learner's own config (qlearn: history 20, so each reset warms the
+    roads with 19 prefill windows), the mean of ``episodes`` episodes."""
+    topo, cfg, benv = build_env(qlearn_config())
+    policy = baselines.make_policies(cfg, benv, topo)["greedy"]
+    _, run_one = baselines.episode_runner(cfg, benv, policy)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(cfg.seed)
+    env = benv.init(gen)
+    totals = []
+    for _ in range(episodes):
+        env, total, *_ = run_one(env, gen)
+        totals.append(total)
+    return sum(totals) / len(totals)
+
+
+def masked_episode_reward(cfg, benv, policy, env, gen):
+    """One episode of ``policy`` from the reset ``env``, its reward
+    counted as qlearn's validation counts it (algorithms/qlearn.py
+    greedy_rollout): each env's rewards up to its first done, discounted
+    and averaged over the batch."""
+    I, B = benv.n_intersections, benv.n_envs
+    held = torch.zeros((I, B), dtype=torch.int32, device=DEVICE)
+    alive = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    total = torch.zeros((), dtype=torch.float32, device=DEVICE)
+    for t in range(cfg.episode_len):
+        a, held = policy(t, gen, env, held)
+        env, _, rew, done, _ = benv.step_autoreset_lazy(env, a)
+        disc = float(np.float32(cfg.gamma) ** np.float32(t))
+        total = total + torch.mean(torch.mean(rew, dim=0)
+                                   * alive.float()) * disc
+        alive = alive & ~done
+    return float(total)
+
+
+def profile_phase(card, runs):
+    """torch.profiler over one run of each path: device time of the
+    window kernel and of all kernels per agent step, and the device's
+    idle share of the profiled wall time.  ``runs`` maps a path to
+    (fn, agent steps).  Reports "not measured" where the profiler shows
+    no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rows = []
+    for path, (fn, steps) in runs.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        us = lambda e: getattr(e, "self_device_time_total", 0.0)
+        busy = sum(us(e) for e in dev) / 1e3
+        kern = sum(us(e) for e in dev if "window_kernel" in e.key) / 1e3
+        row = {"phase": "profile", "path": path, "card": card,
+               "envs": N_ENVS, "agent_steps": steps,
+               "wall_ms_per_step_profiled": wall_ms / steps}
+        if busy > 0:
+            top = sorted(dev, key=us, reverse=True)[:6]
+            row.update(device_ms_per_step=busy / steps,
+                       window_kernel_ms_per_step=kern / steps,
+                       window_share_of_device_time=kern / busy,
+                       device_idle_share=max(0.0, 1 - busy / wall_ms),
+                       kernels_on_device=len(dev),
+                       top_kernels_ms_per_step={
+                           e.key[:60]: us(e) / 1e3 / steps for e in top})
+        else:
+            row["device_time"] = "not measured: no device events"
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def k2_phase(card):
+    """The bench workload with a two-archetype table: random_rollout
+    through make_batched_env(archetypes=TWO), device spawns, lazy
+    autoreset; 24 warm-up and 120 timed agent steps."""
+    topo = GridRoad(3, 3, 250.0)
+    cfg = bench_config(topo)
+    warmup, agent_steps = 24, 120
+    benv = make_batched_env(topo, cfg, N_ENVS, device=DEVICE,
+                            archetypes=TWO)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2)
+    window_cuda.launches.clear()
+    state = benv.init(gen)
+    state, obs = benv.reset(state)
+    state, gen, rews, dones = random_rollout(benv, state, gen, warmup)
+    float(rews.sum())
+    t0 = time.perf_counter()
+    state, gen, rews, dones = random_rollout(benv, state, gen, agent_steps)
+    fetched = float(rews.sum() + dones.sum())
+    dt = time.perf_counter() - t0
+    windows = 1 + cfg.warmup_lights + warmup + agent_steps
+    check_launches("k2", {"window_archetypes": windows})
+    on_road = cars_mask(state.sim)
+    ai = state.sim.cars[:, fast_core.CAI]
+    share = float((ai[on_road] == 1.0).float().mean())
+    ok = (bool(torch.isfinite(rews).all()) and math.isfinite(fetched)
+          and 0.0 < share < 1.0)
+    row = {"phase": "k2", "card": card, "envs": N_ENVS,
+           "archetypes": TWO.tolist(), "agent_steps": agent_steps,
+           "seconds": dt,
+           "env_steps_per_s": agent_steps * cfg.light_iterations * N_ENVS
+           / dt, "cars_on_roads": int(on_road.sum()),
+           "truck_share_on_roads": share,
+           "mean_reward": float(rews.mean()),
+           "dones_timed_run": int(dones.sum()),
+           "launches": PATH_LAUNCHES["k2"], "windows_run": windows,
+           "outputs_finite": ok}
+    emit(row)
+    if not ok:
+        raise SmokeFailure("k2 rollout gave non-finite output or one "
+                           "archetype only")
+    return state, row
+
+
+def kernel_entry(name, replaces, main_path, parity_rows, timing):
+    """One entry of the kernels line: launches on the variant's main
+    path and on every path, the parity cases' largest error, the times
+    and the bound of the timing row."""
+    return {"name": name, "route": "cuda", "source": SOURCE,
+            "replaces": replaces,
+            "launches": PATH_LAUNCHES[main_path].get(name, 0),
+            "main_path": main_path,
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in PATH_LAUNCHES.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in parity_rows),
+            "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+            "library_ms": None}
 
 
 def main():
@@ -582,40 +912,51 @@ def main():
     topo = GridRoad(3, 3, 250.0)
     benv, state, launches, best = bench_phase(card)
     tparity = telemetry_parity_phase()
+    vparity = variant_parity_phase()
     train_row, val_row, qtime = qlearn_phase(card)
-    core = timing_phase(card, state, topo, bench_config(topo), False)
-    tel = timing_phase(card, state, topo, bench_config(topo), True)
-    step_ms = bench_config(topo).light_iterations * N_ENVS / best * 1e3
+    greedy_rows, gtime, greedy_run = baselines_phase(card, {
+        "qlearn_train_validation_rewards": train_row["validation_rewards"],
+        "qlearn_validate_rewards": val_row["rewards"]})
+    k2_state, k2_row = k2_phase(card)
+    gbenv, grollout, genv, ggen = greedy_run
+    bench_gen = torch.Generator(device=DEVICE)
+    bench_gen.manual_seed(7)
+    profile_phase(card, {
+        "bench": (lambda: random_rollout(benv, state.clone(), bench_gen,
+                                         120)[2].sum().item(), 120),
+        "greedy": (lambda: grollout(gbenv.reset(genv)[0], ggen),
+                   gtime["agent_steps"])})
+    bcfg = bench_config(topo)
+    core = timing_phase(card, state, topo, bcfg)
+    tel = timing_phase(card, state, topo, bcfg.replace(mode="validate"))
+    decel = timing_phase(card, state, topo,
+                         bcfg.replace(decel_penalty=True, remi=False))
+    regular = timing_phase(card, state, topo, bcfg.replace(poisson=False))
+    k2 = timing_phase(card, k2_state, topo, bcfg, archetypes=TWO)
+    step_ms = bcfg.light_iterations * N_ENVS / best * 1e3
     emit({"phase": "breakdown", "card": card,
           "agent_step_ms_best": step_ms, "kernel_ms": core["ms"],
           "kernel_share_of_step": core["ms"] / step_ms,
           "qlearn_agent_step_ms": qtime["agent_step_ms"],
           "kernel_share_of_qlearn_step":
-              core["ms"] / qtime["agent_step_ms"]})
+              core["ms"] / qtime["agent_step_ms"],
+          "greedy_agent_step_ms": gtime["agent_step_ms"],
+          "ms_over_core": {r["variant"]: r["ms"] / core["ms"]
+                           for r in (tel, decel, regular, k2)}})
 
-    source = "traffic_env_tpu_torch/csrc/window.cu"
-    emit({"kernels": [{
-        "name": "window", "route": "cuda", "source": source,
-        "replaces": "traffic_env_tpu/ops/pallas_window.py:97",
-        "launches": train_row["kernel_launches"],
-        "launches_by_path": {"bench": launches,
-                             "qlearn_train": train_row["kernel_launches"],
-                             "qlearn_validate": val_row["kernel_launches"]},
-        "max_abs_err": max(r["max_abs_err"] for r in parity),
-        "ms": core["ms"], "plain_ms": core["plain_ms"],
-        "bound_ms": core["bound_ms"], "bound_by": core["bound_by"],
-        "library_ms": None}, {
-        "name": "window_telemetry", "route": "cuda", "source": source,
-        "replaces": "traffic_env_tpu/ops/pallas_window.py:97 "
-                    "(emit_trips=True, :244-250, :559-578, :853-862)",
-        "launches": val_row["telemetry_launches"],
-        "launches_by_path": {
-            "bench": 0, "qlearn_train": train_row["telemetry_launches"],
-            "qlearn_validate": val_row["telemetry_launches"]},
-        "max_abs_err": max(r["max_abs_err"] for r in tparity),
-        "ms": tel["ms"], "plain_ms": tel["plain_ms"],
-        "bound_ms": tel["bound_ms"], "bound_by": tel["bound_by"],
-        "library_ms": None}]})
+    by = lambda word: [r for r in vparity if word in r["variant"]]
+    emit({"kernels": [
+        kernel_entry("window", REPLACES, "bench", parity, core),
+        kernel_entry("window_telemetry", REPLACES + " (emit_trips=True, "
+                     ":244-250, :559-578, :853-862)", "qlearn_validate",
+                     tparity, tel),
+        kernel_entry("window_decel", REPLACES + " (decel_penalty, "
+                     ":521-537)", "greedy_decel", by("decel"), decel),
+        kernel_entry("window_regular", REPLACES + " (poisson=False, "
+                     ":391-399)", "greedy_regular", by("regular"), regular),
+        kernel_entry("window_archetypes", REPLACES + " (k>1 archetypes, "
+                     ":123-147, :348-353, :398-434, :482-490, :552-641)",
+                     "k2", by("archetypes"), k2)]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
-"""Learners, dispatched by trainer name (counterpart of
-``traffic_env_tpu/algorithms/__init__.py``).  The port has qlearn; the
-other learners and the scripted baselines are not ported yet and raise,
-naming the ROADMAP item that brings each."""
+"""Learners and scripted baselines, dispatched by trainer name
+(counterpart of ``traffic_env_tpu/algorithms/__init__.py``).  The port
+has qlearn and the six baselines; the other learners are not ported yet
+and raise, naming the ROADMAP item that brings each."""
 
 from __future__ import annotations
 
@@ -11,11 +11,11 @@ import torch
 
 from ..config import Config
 
-_PORTED = ("qlearn",)
+_BASELINES = ("random", "const0", "const1", "fixed", "greedy",
+              "spacedgreedy")
+_PORTED = ("qlearn",) + _BASELINES
 # trainer -> ROADMAP queue 1 item that ports it
-_NOT_PORTED = {"qrnn": 9, "a3c": 8, "polgrad_rnn": 9, "cem": 9,
-               "random": 7, "const0": 7, "const1": 7, "fixed": 7,
-               "greedy": 7, "spacedgreedy": 7}
+_NOT_PORTED = {"qrnn": 9, "a3c": 8, "polgrad_rnn": 9, "cem": 9}
 
 
 def run_alg(cfg: Config):
@@ -40,6 +40,9 @@ def run_alg(cfg: Config):
         # the JAX package traps NaNs inside its jitted programs; autograd's
         # anomaly mode raises on a NaN in a backward pass
         torch.autograd.set_detect_anomaly(True)
+    if name in _BASELINES:
+        from . import baselines
+        return baselines.run(cfg, name)
     mod = importlib.import_module(f"{__name__}.{name}")
     return mod.run(cfg.derive())
 

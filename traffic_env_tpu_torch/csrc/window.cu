@@ -3,13 +3,28 @@
 // Replaces traffic_env_tpu/ops/pallas_window.py:97 make_window_kernel
 // (inner `kernel` :161-677, launched by `window` :680-749): W simulator
 // ticks of one light period for a batch of envs, with the Repeater's
-// window sums.  This file covers one car archetype (k = 1), spawns from
-// schedule rows or from the in-kernel Poisson renewal chain with its
-// backlog, the lazy autoreset, and validate mode's trip telemetry
-// (emit_trips, pallas_window.py:244-250, :559-578, host scatter
-// :853-862).  Its plain PyTorch version is
+// window sums.  It covers every variant of the TPU kernel: spawns from
+// schedule rows, from the in-kernel Poisson renewal chain with its
+// backlog, or in regular batches (:391-399); the lazy autoreset; validate
+// mode's trip telemetry (emit_trips, :244-250, :559-578, host scatter
+// :853-862); the decel_penalty shaping (:521-537); and tables of k > 1
+// car archetypes (the per-car index plane "ai", :123-147 and the
+// multi branches after it).  Its plain PyTorch version is
 // traffic_env_tpu_torch/ops/window.py:window_reference; the two agree
 // bit for bit.
+//
+// Variants: telemetry (EMIT), decel_penalty (DECEL) and k > 1 (MULTI)
+// are template flags, so the k = 1 training launch compiles none of
+// their code.  The spawn mode (schedule, Poisson, regular) is a run-time
+// choice that is the same for every thread and lies outside the IDM
+// loop.
+//
+// decel_penalty makes rewards non-dyadic (count / 10), so the order of
+// every later addition is part of the bit contract: the decel terms are
+// added per train road in ascending road order (for each intersection
+// the TPU kernel's direction-block order), and the hand-off's overflow
+// penalties are summed per intersection first (an exact multiple of 10)
+// and added once, as the TPU kernel's one-hot matrix product does.
 //
 // Telemetry: the TPU kernel writes a (W*Kc, R, B) plane of exit-pop
 // durations because Mosaic has no scatter, and the host scatters it into
@@ -45,6 +60,13 @@
 #define RING 19
 #define MAX_E 64
 #define MAX_I 64
+#define MAX_K 8
+
+// columns of the archetype table (ops/window_cuda.py ARCH_COLUMNS)
+enum { AX, AV, AL, AS0, AA, AB, AT, AV0, NCOL };
+
+// spawn_mode
+enum { SPAWN_SCHEDULE = 0, SPAWN_POISSON = 1, SPAWN_REGULAR = 2 };
 
 struct WindowArgs {
   float* x;
@@ -71,6 +93,9 @@ struct WindowArgs {
   int* last_passed;
   int* trip_hist;  // (nb, B) validate mode only
   float* light;    // (I, B) validate mode only
+  float* ai;       // (R, RING, B) archetype index per car, k > 1 only
+  const int* spawn_ai;  // (W, Ks, B) archetype rows, k > 1 schedule mode
+  const float* arch;    // (k, NCOL) archetype table, k > 1 only
   const int* nxt;
   const int* prev;
   const int* dest;
@@ -79,8 +104,9 @@ struct WindowArgs {
   const int* order;  // every road after its successor
   long long car_rstride;  // elements from one road's plane to the next
   int B, R, Rt, I, W, Ks, Kc, E;
-  int n_renew, slot_first, slot_renew, slot_entry, slot_phase;
-  int autoreset, device_spawns, learn_switch, yellow, emit_trips, nb;
+  int n_renew, slot_first, slot_renew, slot_entry, slot_phase, slot_arch;
+  int autoreset, spawn_mode, learn_switch, yellow, emit_trips, nb;
+  int decel, k_arch, reg_tpc, reg_batch;
   float length, rate, lam, detect_x, thresh, eps, penalty;
   float c_a, c_t, c_s0, c_l, c_v0, spawn_v, spawn_x, den0;
 };
@@ -138,6 +164,14 @@ __device__ __forceinline__ int hash_phase(int gtick, int i) {
   return (int)((h >> 14) & 1u);
 }
 
+// The archetype of an index read from the float plane: the TPU kernel's
+// one-hot where-chain, so an index outside 1..k-1 reads row 0.
+__device__ __forceinline__ int arch_of(float f, int k) {
+  int j = 0;
+  for (int q = 1; q < k; ++q) j = f == (float)q ? q : j;
+  return j;
+}
+
 // Cars at the front of road r past its end, in order, at most Kc.
 __device__ __forceinline__ int crossing(const WindowArgs& a, const float* X,
                                         int r, int ld, int lc) {
@@ -152,7 +186,7 @@ __device__ __forceinline__ int crossing(const WindowArgs& a, const float* X,
   return c;
 }
 
-template <bool EMIT>
+template <bool EMIT, bool DECEL, bool MULTI>
 __global__ void window_kernel(const WindowArgs a) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
@@ -161,8 +195,10 @@ __global__ void window_kernel(const WindowArgs a) {
   float* X = a.x + b;
   float* V = a.v + b;
   float* Wc = a.w + b;
+  float* AI = MULTI ? a.ai + b : nullptr;
 #define CAR(P, r, s) P[(long long)(r) * rs + (long long)(s) * B]
 #define ROW(P, r) P[(r) * B + b]
+#define PAR(j, col) a.arch[(j) * NCOL + (col)]
   const uint32_t key0 = (uint32_t)a.seed[b], key1 = (uint32_t)b;
   int done = a.done[b];
   int steps = a.steps[b], gtick = a.gtick[b];
@@ -173,6 +209,7 @@ __global__ void window_kernel(const WindowArgs a) {
       CAR(X, r, 0) = __int_as_float(0x7f800000);
       CAR(V, r, 0) = 0.0f;
       CAR(Wc, r, 0) = 0.0f;
+      if constexpr (MULTI) CAR(AI, r, 0) = 0.0f;
       ROW(a.leading, r) = 0;
       ROW(a.lastcar, r) = 0;
     }
@@ -180,7 +217,7 @@ __global__ void window_kernel(const WindowArgs a) {
       ROW(a.elapsed, i) = 0;
       ROW(a.passed_dst, i) = 0;
       ROW(a.phase, i) =
-          a.device_spawns
+          a.spawn_mode != SPAWN_SCHEDULE
               ? (int)(philox_w0((uint32_t)gtick, (uint32_t)(a.slot_phase + i),
                                 key0, key1) & 1u)
               : hash_phase(gtick, i);
@@ -206,11 +243,12 @@ __global__ void window_kernel(const WindowArgs a) {
   }
 
   float rew[MAX_I];
+  float pen[DECEL ? MAX_I : 1];  // the hand-off's penalties per intersection
   int placed[MAX_E], free_e[MAX_E];
   float floor_e[MAX_E];
 
   for (int tick = 0; tick < a.W; ++tick) {
-    if (a.device_spawns && gap < 0)
+    if (a.spawn_mode == SPAWN_POISSON && gap < 0)
       gap = gap_draw(uniform24(philox_w0((uint32_t)gtick,
                                          (uint32_t)a.slot_first, key0, key1)),
                      a.lam);
@@ -224,6 +262,7 @@ __global__ void window_kernel(const WindowArgs a) {
       ROW(a.phase, i) = a.learn_switch ? flip : ac;
       ROW(a.elapsed, i) = change == 0 ? ROW(a.elapsed, i) + 1 : 0;
       rew[i] = 0.0f;
+      if constexpr (DECEL) pen[i] = 0.0f;
     }
     const float one = steps >= 0 ? 1.0f : 2.0f;  // run-time 1.0
     int ovf = 0;
@@ -232,14 +271,27 @@ __global__ void window_kernel(const WindowArgs a) {
     for (int e = 0; e < a.E; ++e) {
       const int road = a.entry[e];
       const int ld = ROW(a.leading, road), lc = ROW(a.lastcar, road);
-      floor_e[e] = mod_s(lc - ld) > 0
-                       ? (CAR(X, road, lc) - a.c_l * one) - a.c_s0
-                       : __int_as_float(0x7f800000);
+      float fl = __int_as_float(0x7f800000);
+      if (mod_s(lc - ld) > 0) {
+        if constexpr (MULTI) {
+          // the tail car's own length and gap
+          const int ta = arch_of(CAR(AI, road, lc), a.k_arch);
+          fl = (CAR(X, road, lc) - PAR(ta, AL)) - PAR(ta, AS0);
+        } else {
+          fl = (CAR(X, road, lc) - a.c_l * one) - a.c_s0;
+        }
+      }
+      floor_e[e] = fl;
       free_e[e] = mod_s(ld - 1 - lc);
       placed[e] = 0;
     }
     int nplace = 0;
-    if (a.device_spawns) {
+    if (a.spawn_mode == SPAWN_REGULAR) {
+      // a batch of reg_batch cars whenever the global tick hits the
+      // interval; gap and backlog stay untouched
+      const int due = a.reg_tpc ? gtick % a.reg_tpc == 0 : 1;
+      nplace = due ? a.reg_batch : 0;
+    } else if (a.spawn_mode == SPAWN_POISSON) {
       for (int k = 0; k < a.n_renew; ++k) {
         if (gap == 0) {
           ++backlog;
@@ -254,16 +306,26 @@ __global__ void window_kernel(const WindowArgs a) {
       backlog -= nplace;
     }
     for (int j = 0; j < a.Ks; ++j) {
-      int e;
-      if (a.device_spawns) {
+      int e, aj = 0;
+      if (a.spawn_mode != SPAWN_SCHEDULE) {
         if (j >= nplace) break;
         const float u = uniform24(philox_w0(
             (uint32_t)gtick, (uint32_t)(a.slot_entry + j), key0, key1));
         e = (int)(u * (float)a.E);
         e = e < a.E - 1 ? e : a.E - 1;
+        if constexpr (MULTI) {
+          // a Poisson arrival draws its archetype; regular ones are 0
+          if (a.spawn_mode == SPAWN_POISSON) {
+            const float ua = uniform24(philox_w0(
+                (uint32_t)gtick, (uint32_t)(a.slot_arch + j), key0, key1));
+            aj = (int)(ua * (float)a.k_arch);
+            aj = aj < a.k_arch - 1 ? aj : a.k_arch - 1;
+          }
+        }
       } else {
         e = a.spawn_rows[(tick * a.Ks + j) * B + b];
         if (e < 0) continue;
+        if constexpr (MULTI) aj = a.spawn_ai[(tick * a.Ks + j) * B + b];
       }
       const int road = a.entry[e];
       if (placed[e] >= free_e[e]) {
@@ -272,12 +334,21 @@ __global__ void window_kernel(const WindowArgs a) {
         rew[i] = rew[i] + (-a.penalty);
         continue;
       }
-      const float xj = fmin_(a.spawn_x, floor_e[e]);
-      floor_e[e] = (xj - a.c_l * one) - a.c_s0;
       ++placed[e];
       const int s = mod_s(ROW(a.lastcar, road) + placed[e]);
-      CAR(X, road, s) = xj;
-      CAR(V, road, s) = a.spawn_v;
+      if constexpr (MULTI) {
+        const int ap = aj > 0 && aj < a.k_arch ? aj : 0;
+        const float xj = fmin_(PAR(ap, AX), floor_e[e]);
+        floor_e[e] = (xj - PAR(ap, AL)) - PAR(ap, AS0);
+        CAR(X, road, s) = xj;
+        CAR(V, road, s) = PAR(ap, AV);
+        CAR(AI, road, s) = (float)aj;
+      } else {
+        const float xj = fmin_(a.spawn_x, floor_e[e]);
+        floor_e[e] = (xj - a.c_l * one) - a.c_s0;
+        CAR(X, road, s) = xj;
+        CAR(V, road, s) = a.spawn_v;
+      }
       CAR(Wc, road, s) = (float)steps;
     }
     for (int e = 0; e < a.E; ++e) {
@@ -307,20 +378,38 @@ __global__ void window_kernel(const WindowArgs a) {
       const int n = mod_s(lc - ld);
       const int wrapped = ld > lc;
       float lx = CAR(X, r, ld), lv = CAR(V, r, ld);
-      int wait_inc = 0, det = 0;
+      float ll = 0.0f;  // MULTI: the leader's length; the fake leader has 0
+      int wait_inc = 0, det = 0, decel = 0;
       for (int k = 1; k <= n; ++k) {
         const int s = mod_s(ld + k);
         const float xs = CAR(X, r, s), vs = CAR(V, r, s);
-        const float ldl = k == 1 ? 0.0f : a.c_l;
-        const float desired =
-            a.c_s0 + nn(nn(vs * a.c_t) + (vs * (vs - lv)) / den);
-        const float gapp = (lx - xs) - ldl;
-        const float q = vs / v0p;
-        const float q2 = q * q;
-        const float free_flow = nn(q2 * q2);
-        const float rr = desired / (gapp + a.eps);
-        const float dv = a.c_a * ((1.0f - free_flow) - nn(rr * rr));
+        float dv;
+        if constexpr (MULTI) {
+          const int j = arch_of(CAR(AI, r, s), a.k_arch);
+          const float pa = PAR(j, AA), pb = PAR(j, AB);
+          const float dn = (2.0f * sqrtf(pa * pb)) * one;
+          const float desired =
+              PAR(j, AS0) + nn(nn(vs * PAR(j, AT)) + (vs * (vs - lv)) / dn);
+          const float gapp = (lx - xs) - ll;
+          const float q = vs / (PAR(j, AV0) * one);
+          const float q2 = q * q;
+          const float free_flow = nn(q2 * q2);
+          const float rr = desired / (gapp + a.eps);
+          dv = pa * ((1.0f - free_flow) - nn(rr * rr));
+          ll = PAR(j, AL);
+        } else {
+          const float ldl = k == 1 ? 0.0f : a.c_l;
+          const float desired =
+              a.c_s0 + nn(nn(vs * a.c_t) + (vs * (vs - lv)) / den);
+          const float gapp = (lx - xs) - ldl;
+          const float q = vs / v0p;
+          const float q2 = q * q;
+          const float free_flow = nn(q2 * q2);
+          const float rr = desired / (gapp + a.eps);
+          dv = a.c_a * ((1.0f - free_flow) - nn(rr * rr));
+        }
         const float dvr = dv * a.rate;
+        if constexpr (DECEL) decel += dvr < 0.0f;
         const float dxp = nn(a.rate * vs) + fin((0.5f * dvr) * a.rate);
         const float xn = xs + nn((dxp > 0.0f ? 1.0f : 0.0f) * dxp);
         const float vn = nn(vs + fin(dvr));
@@ -336,6 +425,13 @@ __global__ void window_kernel(const WindowArgs a) {
         ROW(a.waiting, r) += wait_inc;
         ROW(a.detected, r) = det;
       }
+      if constexpr (DECEL) {
+        // a true division by a run-time 10, as the TPU kernel's
+        if (r < a.Rt) {
+          const int i = a.dest[r];
+          rew[i] = rew[i] + (float)decel / (10.0f * one);
+        }
+      }
     }
 
     // -- hand-off, each road after its successor ---------------------------
@@ -345,7 +441,10 @@ __global__ void window_kernel(const WindowArgs a) {
       const int cnt = crossing(a, X, f, ldf, lcf);
       const float fx = CAR(X, f, ldf), fv = CAR(V, f, ldf),
                   fw = CAR(Wc, f, ldf);
+      const float fa = MULTI ? CAR(AI, f, ldf) : 0.0f;
+      // the receiver's tail, read before its own pops
       const float tail = CAR(X, f, lcf);
+      const float tail_a = MULTI ? CAR(AI, f, lcf) : 0.0f;
       if constexpr (EMIT) {
         if (f >= a.Rt) {  // an exit road: its crossing cars leave the map
           for (int k = 1; k <= cnt; ++k) {
@@ -363,6 +462,7 @@ __global__ void window_kernel(const WindowArgs a) {
         CAR(X, f, s) = fx;
         CAR(V, f, s) = fv;
         CAR(Wc, f, s) = fw;
+        if constexpr (MULTI) CAR(AI, f, s) = fa;
       }
       const int new_ld = mod_s(ldf + cnt);
       const int p = a.prev[f];
@@ -378,19 +478,39 @@ __global__ void window_kernel(const WindowArgs a) {
         ovf = 1;
         if (f < a.Rt) {
           const int i = a.dest[f];
-          rew[i] = rew[i] + (-a.penalty * (float)(cnt_in - acc));
+          const float dp = -a.penalty * (float)(cnt_in - acc);
+          if constexpr (DECEL)
+            pen[i] = pen[i] + dp;
+          else
+            rew[i] = rew[i] + dp;
         }
       }
       const int occ = ff ? (ldf != lcf) : (new_ld != lcf);
-      float floor2 = occ ? (tail - a.c_l * one) - a.c_s0
-                         : __int_as_float(0x7f800000);
+      float floor2 = __int_as_float(0x7f800000);
+      if (occ) {
+        if constexpr (MULTI) {
+          const int ta = arch_of(tail_a, a.k_arch);
+          floor2 = (tail - PAR(ta, AL)) - PAR(ta, AS0);
+        } else {
+          floor2 = (tail - a.c_l * one) - a.c_s0;
+        }
+      }
       for (int k = 0; k < acc; ++k) {
         const int ss = mod_s(ldp + 1 + k), sd = mod_s(lcf + 1 + k);
         const float xin = fmin_(CAR(X, p, ss) - a.length, floor2);
         CAR(X, f, sd) = xin;
         CAR(V, f, sd) = CAR(V, p, ss);
         CAR(Wc, f, sd) = CAR(Wc, p, ss);
-        floor2 = (xin - a.c_l * one) - a.c_s0;
+        if constexpr (MULTI) {
+          // each accepted car becomes the tail: its own length and gap
+          // chain the next floor
+          const float ain = CAR(AI, p, ss);
+          CAR(AI, f, sd) = ain;
+          const int ja = arch_of(ain, a.k_arch);
+          floor2 = (xin - PAR(ja, AL)) - PAR(ja, AS0);
+        } else {
+          floor2 = (xin - a.c_l * one) - a.c_s0;
+        }
       }
       ROW(a.leading, f) = new_ld;
       ROW(a.lastcar, f) = mod_s(lcf + acc);
@@ -399,6 +519,10 @@ __global__ void window_kernel(const WindowArgs a) {
         ROW(a.last_passed, f) = cnt;
         if (cnt > 0) ROW(a.passed_dst, a.dest[f]) = 1;
       }
+    }
+
+    if constexpr (DECEL) {
+      for (int i = 0; i < a.I; ++i) rew[i] = rew[i] + pen[i];
     }
 
     // -- commit the tick ---------------------------------------------------
@@ -417,15 +541,28 @@ __global__ void window_kernel(const WindowArgs a) {
   a.backlog[b] = backlog;
 #undef CAR
 #undef ROW
+#undef PAR
 }
 
 extern "C" int window_launch(WindowArgs a, void* stream) {
-  if (a.E > MAX_E || a.I > MAX_I) return (int)cudaErrorInvalidValue;
+  if (a.E > MAX_E || a.I > MAX_I || a.k_arch < 1 || a.k_arch > MAX_K)
+    return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const int blocks = (a.B + threads - 1) / threads;
-  if (a.emit_trips)
-    window_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
-  else
-    window_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int v = (a.emit_trips ? 1 : 0) | (a.decel ? 2 : 0) |
+                (a.k_arch > 1 ? 4 : 0);
+#define LAUNCH(E, D, M) window_kernel<E, D, M><<<blocks, threads, 0, st>>>(a)
+  switch (v) {
+    case 0: LAUNCH(false, false, false); break;
+    case 1: LAUNCH(true, false, false); break;
+    case 2: LAUNCH(false, true, false); break;
+    case 3: LAUNCH(true, true, false); break;
+    case 4: LAUNCH(false, false, true); break;
+    case 5: LAUNCH(true, false, true); break;
+    case 6: LAUNCH(false, true, true); break;
+    default: LAUNCH(true, true, true); break;
+  }
+#undef LAUNCH
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
-"""The batched simulator state's cold paths: init, reset, remi and
-cars_per_road (counterparts of ``traffic_env_tpu/envs/fast_core.py``
-:87-111, :623-641, :649-664).
+"""The batched simulator state's cold paths: init, reset, remi,
+cars_per_road and cars_on_roads (counterparts of
+``traffic_env_tpu/envs/fast_core.py`` :71-111, :623-641, :649-668).
 
 The simulator tick itself lives in the light-period window
 (``ops/window.py``): one window runs ``light_iterations`` ticks, so the
@@ -11,28 +11,36 @@ from __future__ import annotations
 
 import torch
 
-from ..constants import RING
+from ..constants import ARCHETYPES, RING
 from ..topology import GridRoad
 from .structs import SimState
 
 CX, CV, CW = 0, 1, 2  # compact car rows
-N_ROWS = 3
+CAI = 3  # archetype-index car row, present only for k > 1 tables
+
+
+def n_car_rows(archetypes=None) -> int:
+    """Compact rows: x/v/w, plus the archetype index for k > 1 tables."""
+    k = (ARCHETYPES if archetypes is None else archetypes).shape[0]
+    return 4 if k > 1 else 3
 
 
 def init_state_compact(topo: GridRoad, n_envs: int,
                        generator: torch.Generator | None = None,
-                       device="cuda", n_trip_bins: int = 0) -> SimState:
+                       device="cuda", n_trip_bins: int = 0,
+                       rows: int = 3) -> SimState:
     """A fresh, empty batched state (pre-reset).  Each env's Philox
     ``seed`` is drawn from ``generator`` (on the generator's device).
     ``n_trip_bins > 0`` attaches the validate-mode trip-time histogram,
-    i32 (n_trip_bins, n_envs)."""
+    i32 (n_trip_bins, n_envs).  ``rows`` is ``n_car_rows(archetypes)``:
+    4 adds the archetype-index row."""
     dev = torch.device(device)
     R, Rt, I = topo.roads, topo.train_roads, topo.intersections
     B = int(n_envs)
     gen_dev = generator.device if generator is not None else "cpu"
     seed = torch.randint(-2 ** 31, 2 ** 31, (B,), dtype=torch.int32,
                          generator=generator, device=gen_dev).to(dev)
-    cars = torch.zeros((R, N_ROWS, RING, B), dtype=torch.float32, device=dev)
+    cars = torch.zeros((R, rows, RING, B), dtype=torch.float32, device=dev)
     cars[:, CX, 0] = float("inf")
     zi = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
     return SimState(
@@ -116,3 +124,11 @@ def remi(topo: GridRoad, sim: SimState, tables: tuple | None = None):
 
 def cars_per_road(sim: SimState) -> torch.Tensor:
     return (sim.lastcar - sim.leading) % RING
+
+
+def cars_on_roads(topo: GridRoad, sim: SimState) -> torch.Tensor:
+    """Cars on each intersection's four incoming roads: (m, n, 4, B),
+    direction last before the batch (east, west, north, south)."""
+    per_dir = cars_per_road(sim)[:topo.train_roads].reshape(
+        4, topo.m, topo.n, -1)
+    return per_dir.permute(1, 2, 0, 3)

@@ -62,10 +62,13 @@ def _device(device) -> torch.device:
 def make_batched_env(topo: GridRoad, cfg: Config, n_envs: int,
                      on_device_spawns: bool = True,
                      max_spawns_per_tick: int | None = None,
-                     device="cuda") -> BatchedEnv:
+                     device="cuda", archetypes=None) -> BatchedEnv:
     """The batched env of the benchmark path.  ``max_spawns_per_tick``
     defaults to 4 with device spawns (arrivals past the cap are deferred
     by the backlog, never dropped) and 8 with schedule rows.
+    ``archetypes`` is a float32 (k, NPARAMS) car table (the shipped
+    one-row table when None); with k > 1 each car carries its archetype
+    index in a fourth car row, and a schedule needs ``aidx``.
 
     In-place contract: the window writes the new simulator state into
     the tensors of the state it is given (cars, leading, lastcar, phase,
@@ -83,7 +86,8 @@ def make_batched_env(topo: GridRoad, cfg: Config, n_envs: int,
     validate = cfg.mode == "validate"
     obs_dim = 2 * Rt + I + (Rt if cfg.occupancy_obs else 0)
     kw = dict(on_device_spawns=on_device_spawns,
-              max_spawns_per_tick=max_spawns_per_tick)
+              max_spawns_per_tick=max_spawns_per_tick, archetypes=archetypes)
+    rows = fast_core.n_car_rows(archetypes)
     rep = make_repeater_window(topo, cfg, autoreset=False, **kw)
     rep_lazy = make_repeater_window(topo, cfg, autoreset=True, **kw)
     gen = torch.Generator(device=dev)
@@ -122,7 +126,7 @@ def make_batched_env(topo: GridRoad, cfg: Config, n_envs: int,
     def init(generator: torch.Generator | None = None) -> EnvState:
         sim = fast_core.init_state_compact(
             topo, n_envs, generator, dev,
-            n_trip_bins=cfg.episode_ticks + 2 if validate else 0)
+            n_trip_bins=cfg.episode_ticks + 2 if validate else 0, rows=rows)
         hist = torch.zeros((k_hist, obs_dim, n_envs), dtype=torch.float32,
                            device=dev)
         return EnvState(sim=sim, history=hist)

@@ -7,8 +7,9 @@ the GPU and a leaf compares directly with its JAX counterpart.
 Slot layout: each road is a ring of RING = 19 slots; ``leading`` is the
 fake-leader slot and ``lastcar`` the most recent car, so the cars of a
 road sit at ring distances 1..(lastcar - leading) % RING from the
-leader.  Only x / v / w (position, speed, spawn tick) vary per car; the
-other car parameters are those of the single archetype.
+leader.  x / v / w (position, speed, spawn tick) vary per car; with a
+table of k > 1 car archetypes a fourth row holds each car's archetype
+index as a float, and the other car parameters come from the table.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 
 @dataclasses.dataclass
 class SimState:
-    cars: torch.Tensor         # f32 (R, 3, RING, B): rows x, v, w
+    cars: torch.Tensor         # f32 (R, 3 or 4, RING, B): rows x, v, w
+                               # and, for k > 1 archetypes, the index
     leading: torch.Tensor      # i32 (R, B) ring index of the fake leader
     lastcar: torch.Tensor      # i32 (R, B) ring index of the newest car
     phase: torch.Tensor        # i32 (I, B) light phase per intersection
@@ -60,13 +62,12 @@ class SpawnSchedule:
     counts: torch.Tensor            # i32 (T, B) cars arriving at each tick
     roads: torch.Tensor             # i32 (T, K, B) entry road ids
     base: torch.Tensor | int = 0    # absolute tick of row 0 (per env)
+    # i32 (T, K, B) archetype index of each arrival; None for k = 1
+    aidx: torch.Tensor | None = None
 
     @classmethod
-    def from_numpy(cls, counts, roads, base=0, device="cuda"):
+    def from_numpy(cls, counts, roads, base=0, device="cuda", aidx=None):
         dev = torch.device(device)
-        return cls(counts=torch.as_tensor(counts, dtype=torch.int32,
-                                          device=dev),
-                   roads=torch.as_tensor(roads, dtype=torch.int32,
-                                         device=dev),
-                   base=torch.as_tensor(base, dtype=torch.int32,
-                                        device=dev))
+        i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+        return cls(counts=i32(counts), roads=i32(roads), base=i32(base),
+                   aidx=None if aidx is None else i32(aidx))

@@ -4,8 +4,11 @@ leaves, as numpy arrays, to the port's state and back.
 The JAX package holds a threefry ``key`` (2, B) per env where the port
 holds a Philox ``seed`` (B,); ``sim_from_arrays`` takes ``seed`` when
 given and otherwise the first key word's bits.  ``trip_hist`` (validate
-telemetry) is carried when present.  ``qnet_state_dict_from_flax`` turns
-a flax ``QNet`` param tree into the port's ``QNet`` state_dict.
+telemetry) is carried when present, and ``cars`` with all its rows (the
+archetype-index row 3 of a k > 1 state included).
+``schedule_from_arrays`` carries a schedule, its ``aidx`` included.
+``qnet_state_dict_from_flax`` turns a flax ``QNet`` param tree into the
+port's ``QNet`` state_dict.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .envs.structs import SimState
+from .envs.structs import SimState, SpawnSchedule
 
 _FIELDS = ("cars", "leading", "lastcar", "phase", "elapsed", "passed",
            "detected", "waiting", "passed_dst", "rewards", "steps",
@@ -52,6 +55,17 @@ def sim_to_arrays(sim: SimState) -> dict:
     keys = _FIELDS + ("seed",) + (("trip_hist",) if sim.trip_hist is not None
                                   else ())
     return {k: getattr(sim, k).detach().cpu().numpy() for k in keys}
+
+
+def schedule_from_arrays(sched, device="cuda") -> SpawnSchedule:
+    """A batched schedule with numpy (or array-like) fields ``counts``
+    (T, B), ``roads`` (T, K, B), ``base`` and ``aidx`` (T, K, B) or None
+    -> SpawnSchedule on ``device``."""
+    aidx = getattr(sched, "aidx", None)
+    return SpawnSchedule.from_numpy(
+        np.asarray(sched.counts), np.asarray(sched.roads),
+        np.asarray(sched.base), device,
+        aidx=None if aidx is None else np.asarray(aidx))
 
 
 def qnet_state_dict_from_flax(params) -> dict:

@@ -53,12 +53,19 @@ def philox4x32(c0, c1, c2, c3, k0, k1, rounds: int = 10):
     return c0, c1, c2, c3
 
 
+# the most intersections the window kernel takes (MAX_I in csrc/window.cu)
+MAX_I = 64
+
+
 class Slots:
     """Draw slots of one tick for ``Ks`` placements per tick:
     ``first`` (the first inter-arrival gap), ``renew`` .. ``renew +
     n_renew - 1`` (the renewal chain), ``entry`` .. ``entry + Ks - 1``
-    (entry-road draws) and ``phase`` .. ``phase + I - 1`` (the lazy
-    reset's phase bit per intersection)."""
+    (entry-road draws), ``phase`` .. ``phase + I - 1`` (the lazy
+    reset's phase bit per intersection) and ``arch`` .. ``arch + Ks - 1``
+    (each placed car's archetype with a k > 1 table).  ``arch`` lies past
+    the phase range of the largest grid, so the k = 1 draws keep their
+    slots."""
 
     def __init__(self, max_spawns_per_tick: int):
         self.n_renew = max(max_spawns_per_tick, 8)
@@ -66,6 +73,7 @@ class Slots:
         self.renew = 1
         self.entry = 1 + self.n_renew
         self.phase = self.entry + max_spawns_per_tick
+        self.arch = self.phase + MAX_I
 
 
 def draw_bits(seed: torch.Tensor, gtick: torch.Tensor,

@@ -41,6 +41,11 @@ Phases, one JSON line each:
    rows, regular with device spawns, k2 with schedule rows (and their
    archetype rows) and with device spawns, and k2 + decel + telemetry
    with schedule rows.  Every state leaf bit-equal.
+   geometry_parity: launch geometries other than the bench's: a 5x5
+   grid (120 roads, fewer envs a block) for the core variant and for
+   k2 + decel + telemetry, 4096 envs, 30 windows; and a ragged batch of
+   997 envs (a prime: no multiple of the envs a block) on 3x3.
+   Bit-equal.
 9. baselines: greedy through ``run_alg`` at 3x3, 4096 envs, 120 agent
    steps an episode: 3 training episodes, one ``mode="validate"``
    episode, one with ``poisson=False`` and one with ``decel_penalty=True,
@@ -56,14 +61,34 @@ Phases, one JSON line each:
    episode: device time of the window kernel and of all kernels per
    agent step, and the device's idle share.
 12. timing: each variant's time per window by CUDA events, the plain
-   version's, and the bound from this run's bytes and operations.
+   version's, the bound from this run's bytes and operations, the
+   launch geometry (envs and threads a block, dynamic shared memory,
+   resident blocks per SM) and the design's staged-bytes floor (every
+   env's whole car rings and integer planes in and out once).
+13. sweep (only with ``--tune``): the core variant's time per window on
+   the bench state for each envs-per-block G and road items per thread
+   that fits; every geometry must leave the state the default geometry
+   leaves.  phase_profile (only with ``--tune``): the core and k2
+   kernels' cycles per block and tick by phase of a tick (the kernel's
+   own clock64 profile), and the ms per window with the profile off and
+   on.
+14. parent_vs_change (only with ``--parent DIR``, a checkout of the
+   parent commit): the parent's window kernel and this one, each
+   variant on one state, timed in turns (parent, change, change,
+   parent); the two must leave the same state.  Then, in the same
+   turns, bench env-steps/s and qlearn's agent-step ms of each commit.
 
 Then the ``kernels`` line, the nvidia-smi line, and last the ``ok``
-line.  Any failure exits non-zero before the ``ok`` line; without a
-CUDA device the script exits non-zero at once.
+line.  ``--tune`` adds phase 13 and ``--parent DIR`` phase 14.  Any
+failure exits non-zero before the ``ok`` line; without a CUDA device the
+script exits non-zero at once.
 """
 
+import argparse
 import contextlib
+import dataclasses
+import importlib
+import importlib.util
 import io
 import json
 import math
@@ -92,6 +117,7 @@ from traffic_env_tpu_torch.interop import sim_to_arrays
 from traffic_env_tpu_torch.ops import _build, window_cuda
 from traffic_env_tpu_torch.ops.window import (make_window_spec, sim_to_dict,
                                               window_reference)
+from traffic_env_tpu_torch.ops.window_cuda import block_geometry, spawn_mode
 from traffic_env_tpu_torch.topology import GridRoad
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the
@@ -109,6 +135,9 @@ N_ENVS = 4096
 DEVICE = "cuda"
 SOURCE = "traffic_env_tpu_torch/csrc/window.cu"
 REPLACES = "traffic_env_tpu/ops/pallas_window.py:97"
+# the tuning sweep: envs per block and road items per thread
+SWEEP_ENVS_PER_BLOCK = (1, 2, 4, 6, 8, 12, 16)
+SWEEP_ROADS_PER_THREAD = (1, 2, 4)
 
 
 def two_archetypes():
@@ -157,7 +186,9 @@ def nvidia_smi() -> str:
 
 
 def bench_config(topo):
-    cfg = Config(history=1, trainer="random", num_envs=N_ENVS).derive()
+    cfg = Config(history=1, trainer="random", num_envs=N_ENVS,
+                 grid_m=topo.m, grid_n=topo.n,
+                 road_length=float(topo.length)).derive()
     return derive_spawn_rate(cfg, topo.open_sides(0))
 
 
@@ -192,13 +223,13 @@ def schedule_rows(rng, cfg, spec, E, B, dev):
 
 def parity_case(name, topo, cfg, n_windows, device_spawns, autoreset, Ks,
                 seed, all_red=False, telemetry=False, archetypes=None,
-                phase_name=None):
-    """The kernel against its plain version from one reset; with
-    ``telemetry`` the validate-mode variant, its light times and its
-    trip-time histogram included; with ``archetypes`` the k > 1 variant
-    and its archetype plane."""
+                phase_name=None, B=N_ENVS):
+    """The kernel against its plain version from one reset of B envs;
+    with ``telemetry`` the validate-mode variant, its light times and
+    its trip-time histogram included; with ``archetypes`` the k > 1
+    variant and its archetype plane."""
     dev = torch.device(DEVICE)
-    B, I, E = N_ENVS, topo.intersections, len(topo.entrypoints)
+    I, E = topo.intersections, len(topo.entrypoints)
     if telemetry:
         cfg = cfg.replace(mode="validate")
     spec = make_window_spec(topo, cfg, device_spawns, Ks,
@@ -246,6 +277,8 @@ def parity_case(name, topo, cfg, n_windows, device_spawns, autoreset, Ks,
     row = {"phase": phase_name or ("telemetry_parity" if telemetry
                                    else "parity"),
            "case": name, "variant": spec.variant, "envs": B,
+           "envs_per_block":
+               window_cuda.spec_geometry(spec).envs_per_block,
            "windows": n_windows, "autoreset": autoreset,
            "spawns": "device" if device_spawns else "schedule",
            "lanes_reset" if autoreset else "lanes_done_at_end":
@@ -322,6 +355,29 @@ def variant_parity_phase():
         if row.get("non_dyadic_rewards") == 0:
             raise SmokeFailure(f"no decel term in case {name}")
         rows.append(row)
+    return rows
+
+
+def geometry_parity_phase():
+    """Launch geometries the 3x3 bench state does not reach: 5x5 (120
+    roads, fewer envs a block) and a batch that is no multiple of the
+    envs a block."""
+    t5 = GridRoad(5, 5, 250.0)
+    c5 = bench_config(t5)
+    decel = dict(decel_penalty=True, remi=False)
+    rows = [
+        parity_case("5x5_device_autoreset_on", t5, c5, 30, True, True, 4,
+                    seed=50, phase_name="geometry_parity"),
+        parity_case("5x5_k2_decel_validate_schedule_autoreset_on", t5,
+                    c5.replace(**decel), 30, False, True, 8, seed=51,
+                    telemetry=True, archetypes=TWO,
+                    phase_name="geometry_parity")]
+    topo = GridRoad(3, 3, 250.0)
+    rows.append(parity_case("3x3_ragged_997_device_autoreset_on", topo,
+                            bench_config(topo), 50, True, True, 4, seed=52,
+                            phase_name="geometry_parity", B=997))
+    if rows[-1]["envs"] % rows[-1]["envs_per_block"] == 0:
+        raise SmokeFailure("the ragged case's batch is a multiple of G")
     return rows
 
 
@@ -511,12 +567,23 @@ def timing_phase(card, state, topo, vcfg, archetypes=None):
                          if spec.decel_penalty else IDM_OPS_PER_CAR_TICK)
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = n_ops / PEAK_F32_PER_S * 1e3
+    # the design's own floor: every env's whole car rings and integer
+    # planes read and written once (the kernel stages them in shared
+    # memory whatever they hold)
+    staged_bytes = 2 * (slot_bytes * topo.roads * RING * B + int_bytes) \
+        + in_bytes + out_bytes + tel_bytes
+    geom = window_cuda.spec_geometry(spec)
     row = {"phase": "timing", "variant": spec.variant, "card": card,
            "envs": B, "ms": ms,
            "plain_ms": plain_ms, "bytes": n_bytes, "bytes_ms": bytes_ms,
            "f32_ops": n_ops, "ops_ms": ops_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "staged_bytes": staged_bytes,
+           "staged_floor_ms": staged_bytes / PEAK_BYTES_PER_S * 1e3,
+           "envs_per_block": geom.envs_per_block, "threads": geom.threads,
+           "smem_bytes": geom.smem_bytes,
+           "blocks_per_sm": window_cuda.occupancy(spec, geom),
            "cars_on_roads": cars_after,
            "car_slots_read_per_window": cars_read_pw,
            "car_slots_written_per_window": cars_written_pw,
@@ -534,9 +601,9 @@ def timing_phase(card, state, topo, vcfg, archetypes=None):
 
 
 def batch_scaling(spec, sim, I, B, ms):
-    """ms per window at 1024 and 16384 envs: one thread per env, so the
-    batch sets how many SMs the kernel fills; the warmed state sliced or
-    tiled along the batch."""
+    """ms per window at 1024 and 16384 envs (blocks of G envs: the batch
+    sets how many waves of blocks the card runs); the warmed state
+    sliced or tiled along the batch."""
     dev = torch.device("cuda")
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     per_batch = {}
@@ -868,6 +935,228 @@ def k2_phase(card):
     return state, row
 
 
+def time_windows(spec, sim, acts, tel=(None, None), n=30, launch=None,
+                 **kw):
+    """CUDA-event ms per window of ``n`` windows on ``sim`` (updated in
+    place, lazy autoreset, device spawns) after one warm-up window:
+    ``launch`` (window_cuda.window by default, with the keywords ``kw``:
+    geom, clocks) of ``spec``."""
+    d = sim_to_dict(sim)
+    launch = launch or window_cuda.window
+    run = lambda a: launch(spec, d, a, None, sim.seed, True, *tel, **kw)
+    run(acts[0])
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for i in range(n):
+        run(acts[(i + 1) % len(acts)])
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def sweep_phase(card, state, topo, cfg):
+    """The core variant's ms per window on the bench state for every
+    (envs per block, road items per thread) that fits a block (the
+    kernel's loops over items take any thread count); each geometry
+    starts from the same state with the same actions and must end in the
+    same state."""
+    spec = make_window_spec(topo, cfg, True, 4)
+    default = window_cuda.spec_geometry(spec)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(11)
+    acts = torch.randint(0, 2, (16, topo.intersections, N_ENVS),
+                         dtype=torch.int32, device=DEVICE, generator=gen)
+    rows, first = [], None
+    for G in SWEEP_ENVS_PER_BLOCK:
+        for rpt in SWEEP_ROADS_PER_THREAD:
+            try:
+                geom = block_geometry(G, spec.R, spec.Rt, spec.I,
+                                      len(spec.entry), spec.Kc, spec.Ks,
+                                      spec.k, spec.decel_penalty,
+                                      spawn_mode(spec))
+            except ValueError:
+                continue
+            items = -(-G * spec.R // rpt)
+            geom = dataclasses.replace(
+                geom, threads=min(1024, -(-items // 32) * 32))
+            sim = state.sim.clone()
+            ms = time_windows(spec, sim, acts, geom=geom)
+            leaves = sim_leaves(sim)
+            first = first or leaves
+            equal = all(torch.equal(v, first[k]) for k, v in leaves.items())
+            row = {"phase": "sweep", "card": card, "variant": spec.variant,
+                   "envs": N_ENVS, "envs_per_block": G,
+                   "roads_per_thread": rpt, "threads": geom.threads,
+                   "smem_bytes": geom.smem_bytes,
+                   "blocks_per_sm": window_cuda.occupancy(spec, geom),
+                   "ms": ms, "default": geom == default,
+                   "state_equal": equal}
+            emit(row)
+            rows.append(row)
+            if not equal:
+                raise SmokeFailure(f"geometry {geom} changed the result")
+    return rows
+
+
+def phase_profile_phase(card, state, k2_state, topo, cfg):
+    """Where a block's time goes: the core and k2 kernels on their
+    timing states with the phase profile on (thread 0 of every block
+    adds each phase's cycles, barrier to barrier), as cycles per block
+    and tick and as shares; beside the ms per window with the profile
+    off and on, its cost."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(13)
+    acts = torch.randint(0, 2, (16, topo.intersections, N_ENVS),
+                         dtype=torch.int32, device=DEVICE, generator=gen)
+    rows = []
+    for arch, st in ((None, state), (TWO, k2_state)):
+        spec = make_window_spec(topo, cfg, True, 4, archetypes=arch)
+        geom = window_cuda.spec_geometry(spec)
+        ms_off = time_windows(spec, st.sim.clone(), acts)
+        clocks = torch.zeros(len(window_cuda.PHASES), dtype=torch.int64,
+                             device=DEVICE)
+        n = 30
+        ms_on = time_windows(spec, st.sim.clone(), acts, n=n, clocks=clocks)
+        blocks = -(-N_ENVS // geom.envs_per_block)
+        per = (n + 1) * blocks * spec.W
+        cyc = clocks.double().cpu()
+        row = {"phase": "phase_profile", "card": card,
+               "variant": spec.variant, "envs": N_ENVS,
+               "envs_per_block": geom.envs_per_block,
+               "threads": geom.threads, "ms_profile_off": ms_off,
+               "ms_profile_on": ms_on,
+               "cycles_per_block_tick": float(cyc.sum()) / per,
+               "cycles_per_block_tick_by_phase": {
+                   p: float(c) / per
+                   for p, c in zip(window_cuda.PHASES, cyc)},
+               "share_by_phase": {
+                   p: float(c / cyc.sum())
+                   for p, c in zip(window_cuda.PHASES, cyc)}}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def load_parent(parent_dir):
+    """The port's package of the checkout ``parent_dir``, imported as
+    ``parent_port`` (its kernel builds into that checkout)."""
+    pkg = os.path.join(os.path.abspath(parent_dir), "traffic_env_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_port"] = mod
+    spec.loader.exec_module(mod)
+    return {name: importlib.import_module(f"parent_port.{name}")
+            for name in ("config", "topology", "ops.window",
+                         "ops.window_cuda", "envs.rollout",
+                         "algorithms.qlearn")}
+
+
+def parent_phase(card, parent_dir, state, k2_state):
+    """The parent commit's window kernel and this one on the same state
+    and actions, every variant, in turns: parent, change, change,
+    parent.  Both must end in the same state."""
+    par = load_parent(parent_dir)
+    topo = GridRoad(3, 3, 250.0)
+    ptopo = par["topology"].GridRoad(3, 3, 250.0)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(12)
+    acts = torch.randint(0, 2, (16, topo.intersections, N_ENVS),
+                         dtype=torch.int32, device=DEVICE, generator=gen)
+    decel = dict(decel_penalty=True, remi=False)
+    rows = []
+    for over, arch, st in (({}, None, state),
+                           (dict(mode="validate"), None, state),
+                           (decel, None, state),
+                           (dict(poisson=False), None, state),
+                           ({}, TWO, k2_state)):
+        kw = dict(history=1, trainer="random", num_envs=N_ENVS, **over)
+        spec = make_window_spec(topo, derive_spawn_rate(
+            Config(**kw).derive(), topo.open_sides(0)), True, 4,
+            archetypes=arch)
+        pcfg = par["config"].derive_spawn_rate(
+            par["config"].Config(**kw).derive(), ptopo.open_sides(0))
+        pspec = par["ops.window"].make_window_spec(ptopo, pcfg, True, 4,
+                                                   archetypes=arch)
+        times = {"parent": [], "change": []}
+        ends = {}
+        for who in ("parent", "change", "change", "parent"):
+            sim = st.sim.clone()
+            tel = (None, None)
+            if spec.emit_trips:
+                tel = (torch.zeros((pcfg.episode_ticks + 2, N_ENVS),
+                                   dtype=torch.int32, device=DEVICE),
+                       torch.empty((topo.intersections, N_ENVS),
+                                   device=DEVICE))
+            if who == "parent":
+                ms = time_windows(pspec, sim, acts, tel,
+                                  launch=par["ops.window_cuda"].window)
+            else:
+                ms = time_windows(spec, sim, acts, tel)
+            times[who].append(ms)
+            ends[who] = sim_leaves(sim)
+            if spec.emit_trips:
+                ends[who]["trip_hist"] = tel[0]
+        equal = all(torch.equal(v, ends["parent"][k])
+                    for k, v in ends["change"].items())
+        row = {"phase": "parent_vs_change", "card": card,
+               "variant": spec.variant, "envs": N_ENVS,
+               "parent_ms": times["parent"], "change_ms": times["change"],
+               "speedup": sum(times["parent"]) / sum(times["change"]),
+               "state_equal": equal}
+        emit(row)
+        rows.append(row)
+        if not equal:
+            raise SmokeFailure(f"{spec.variant}: the parent's kernel and "
+                               "this one end in different states")
+    return rows
+
+
+def parent_e2e_phase(card, parent_dir):
+    """End to end, the parent commit and this one in turns (parent,
+    change, change, parent): bench env-steps/s as bench_phase measures
+    it (24 warm-up and 120 timed agent steps from a reset, one host
+    fetch) and qlearn's agent-step ms (a timed training episode after
+    one that fills the replay)."""
+    import traffic_env_tpu_torch.envs.rollout as rollout
+    par = load_parent(parent_dir)
+    kw = dict(history=1, trainer="random", num_envs=N_ENVS)
+    pkgs = {"change": (GridRoad, Config, derive_spawn_rate, rollout,
+                       qlearn),
+            "parent": (par["topology"].GridRoad, par["config"].Config,
+                       par["config"].derive_spawn_rate,
+                       par["envs.rollout"], par["algorithms.qlearn"])}
+    runs = {"parent": [], "change": []}
+    for who in ("parent", "change", "change", "parent"):
+        Grid, Cfg, derive, ro, ql = pkgs[who]
+        topo = Grid(3, 3, 250.0)
+        cfg = derive(Cfg(**kw).derive(), topo.open_sides(0))
+        benv = ro.make_batched_env(topo, cfg, N_ENVS, device=DEVICE)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(1)
+        state, _ = benv.reset(benv.init(gen))
+        state, gen, rews, _ = ro.random_rollout(benv, state, gen, 24)
+        float(rews.sum())
+        t0 = time.perf_counter()
+        state, gen, rews, dones = ro.random_rollout(benv, state, gen, 120)
+        float(rews.sum() + dones.sum())
+        bench = 120 * cfg.light_iterations * N_ENVS / (
+            time.perf_counter() - t0)
+        qcfg = Cfg(trainer="qlearn", num_envs=N_ENVS).derive()
+        ctx, ts = ql.make_state(qcfg)
+        ctx.fns.run_episode(ts)
+        t0 = time.perf_counter()
+        ctx.fns.run_episode(ts)
+        step_ms = (time.perf_counter() - t0) / qcfg.episode_len * 1e3
+        runs[who].append({"bench_env_steps_per_s": bench,
+                          "qlearn_agent_step_ms": step_ms})
+    row = {"phase": "parent_vs_change_e2e", "card": card, "envs": N_ENVS,
+           **runs}
+    emit(row)
+    return row
+
+
 def kernel_entry(name, replaces, main_path, parity_rows, timing):
     """One entry of the kernels line: launches on the variant's main
     path and on every path, the parity cases' largest error, the times
@@ -885,6 +1174,13 @@ def kernel_entry(name, replaces, main_path, parity_rows, timing):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a checkout of the parent commit: "
+                    "time its window kernel beside this one")
+    ap.add_argument("--tune", action="store_true",
+                    help="also sweep the launch geometry and profile the "
+                    "kernel's phases")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -913,6 +1209,7 @@ def main():
     benv, state, launches, best = bench_phase(card)
     tparity = telemetry_parity_phase()
     vparity = variant_parity_phase()
+    gparity = geometry_parity_phase()
     train_row, val_row, qtime = qlearn_phase(card)
     greedy_rows, gtime, greedy_run = baselines_phase(card, {
         "qlearn_train_validation_rewards": train_row["validation_rewards"],
@@ -933,6 +1230,12 @@ def main():
                          bcfg.replace(decel_penalty=True, remi=False))
     regular = timing_phase(card, state, topo, bcfg.replace(poisson=False))
     k2 = timing_phase(card, k2_state, topo, bcfg, archetypes=TWO)
+    if args.tune:
+        sweep_phase(card, state, topo, bcfg)
+        phase_profile_phase(card, state, k2_state, topo, bcfg)
+    if args.parent:
+        parent_phase(card, args.parent, state, k2_state)
+        parent_e2e_phase(card, args.parent)
     step_ms = bcfg.light_iterations * N_ENVS / best * 1e3
     emit({"phase": "breakdown", "card": card,
           "agent_step_ms_best": step_ms, "kernel_ms": core["ms"],
@@ -944,9 +1247,12 @@ def main():
           "ms_over_core": {r["variant"]: r["ms"] / core["ms"]
                            for r in (tel, decel, regular, k2)}})
 
-    by = lambda word: [r for r in vparity if word in r["variant"]]
+    by = lambda word: [r for r in vparity + gparity
+                       if word in r["variant"]]
     emit({"kernels": [
-        kernel_entry("window", REPLACES, "bench", parity, core),
+        kernel_entry("window", REPLACES, "bench",
+                     parity + [r for r in gparity
+                               if r["variant"] == "window"], core),
         kernel_entry("window_telemetry", REPLACES + " (emit_trips=True, "
                      ":244-250, :559-578, :853-862)", "qlearn_validate",
                      tparity, tel),

@@ -94,41 +94,33 @@ VARIANTS = {
 }
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("name", sorted(VARIANTS))
-def test_variant_kernel_matches_reference_on_card(name):
-    """On a CUDA card: the decel, regular-spawn and k > 1 variants equal
-    their plain version bit for bit (3x3 of 100 m roads, 256 envs, 20
-    windows, lazy autoreset; schedule rows drawn uniformly)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+def _parity_on_card(topo, cfg, B, device_spawns, arch):
+    """The kernel against its plain version bit for bit: B envs, 20
+    windows, lazy autoreset, schedule rows drawn uniformly."""
     from traffic_env_tpu_torch.ops import window_cuda
-    over, device_spawns, multi = VARIANTS[name]
-    arch = _two_archetypes() if multi else None
-    topo = GridRoad(3, 3, 100.0)
-    cfg = derive_spawn_rate(Config(**over).derive(), topo.open_sides(0))
+    I, E = topo.intersections, len(topo.entrypoints)
     spec = make_window_spec(topo, cfg, device_spawns, 8, archetypes=arch)
     gen = torch.Generator()
     gen.manual_seed(0)
     sim = fast_core.reset(fast_core.init_state_compact(
-        topo, 256, gen, "cuda", rows=fast_core.n_car_rows(arch)), None, gen)
+        topo, B, gen, "cuda", rows=fast_core.n_car_rows(arch)), None, gen)
     dk = sim_to_dict(sim)
     dp = {k: t.clone() for k, t in dk.items()}
     tel_k = tel_p = (None, None)
     if spec.emit_trips:
-        th = torch.zeros((cfg.episode_ticks + 2, 256), dtype=torch.int32,
+        th = torch.zeros((cfg.episode_ticks + 2, B), dtype=torch.int32,
                          device="cuda")
-        tel_k = (th, torch.empty((9, 256), device="cuda"))
-        tel_p = (th.clone(), torch.empty((9, 256), device="cuda"))
+        tel_k = (th, torch.empty((I, B), device="cuda"))
+        tel_p = (th.clone(), torch.empty((I, B), device="cuda"))
     rows = sai = None
     for _ in range(20):
-        a = torch.randint(0, 2, (9, 256), dtype=torch.int32, device="cuda")
+        a = torch.randint(0, 2, (I, B), dtype=torch.int32, device="cuda")
         if not device_spawns:
-            rows = torch.randint(-80, len(topo.entrypoints), (spec.W, 8, 256),
-                                 dtype=torch.int32, device="cuda")
-            if multi:
-                sai = torch.randint(0, 2, (spec.W, 8, 256),
-                                    dtype=torch.int32, device="cuda")
+            rows = torch.randint(-80, E, (spec.W, 8, B), dtype=torch.int32,
+                                 device="cuda")
+            if arch is not None:
+                sai = torch.randint(0, 2, (spec.W, 8, B), dtype=torch.int32,
+                                    device="cuda")
         ok = window_cuda.window(spec, dk, a, rows, sim.seed, True, *tel_k,
                                 spawn_ai=sai)
         op = window_reference(spec, dp, a, rows, sim.seed, True, *tel_p,
@@ -139,3 +131,49 @@ def test_variant_kernel_matches_reference_on_card(name):
         for u, v in pairs:
             assert torch.equal(u, v)
     assert int(fast_core.cars_per_road(sim).sum()) > 0
+    return spec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_variant_kernel_matches_reference_on_card(name):
+    """On a CUDA card: the decel, regular-spawn and k > 1 variants equal
+    their plain version bit for bit (3x3 of 100 m roads, 256 envs, 20
+    windows, lazy autoreset; schedule rows drawn uniformly)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    over, device_spawns, multi = VARIANTS[name]
+    topo = GridRoad(3, 3, 100.0)
+    cfg = derive_spawn_rate(Config(**over).derive(), topo.open_sides(0))
+    _parity_on_card(topo, cfg, 256, device_spawns,
+                    _two_archetypes() if multi else None)
+
+
+GEOMETRIES = {
+    # name: (grid, envs, config overrides, device spawns, two archetypes)
+    "5x5_core_device": ((5, 5), 256, {}, True, False),
+    "5x5_archetypes_decel_telemetry_schedule": (
+        (5, 5), 256, dict(decel_penalty=True, remi=False, mode="validate"),
+        False, True),
+    # a prime batch: no multiple of any block's envs
+    "3x3_ragged_997_device": ((3, 3), 997, {}, True, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(GEOMETRIES))
+def test_kernel_geometries_match_reference_on_card(name):
+    """On a CUDA card: launch geometries the 3x3 cases do not reach (5x5,
+    120 roads, fewer envs a block; a batch whose last block is partly
+    empty) equal the plain version bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from traffic_env_tpu_torch.ops import window_cuda
+    (m, n), B, over, device_spawns, multi = GEOMETRIES[name]
+    topo = GridRoad(m, n, 100.0)
+    cfg = derive_spawn_rate(Config(grid_m=m, grid_n=n, **over).derive(),
+                            topo.open_sides(0))
+    spec = _parity_on_card(topo, cfg, B, device_spawns,
+                           _two_archetypes() if multi else None)
+    if "ragged" in name:
+        assert B % window_cuda.spec_geometry(spec).envs_per_block != 0

@@ -16,37 +16,64 @@
 // Variants: telemetry (EMIT), decel_penalty (DECEL) and k > 1 (MULTI)
 // are template flags, so the k = 1 training launch compiles none of
 // their code.  The spawn mode (schedule, Poisson, regular) is a run-time
-// choice that is the same for every thread and lies outside the IDM
-// loop.
+// value, the same for every thread.
 //
-// decel_penalty makes rewards non-dyadic (count / 10), so the order of
-// every later addition is part of the bit contract: the decel terms are
-// added per train road in ascending road order (for each intersection
-// the TPU kernel's direction-block order), and the hand-off's overflow
-// penalties are summed per intersection first (an exact multiple of 10)
-// and added once, as the TPU kernel's one-hot matrix product does.
+// Design: one block per group of G consecutive envs (G and the thread
+// count come from ops/window_cuda.py:geometry, a function of the road
+// network and the variant; the word offsets of the block's shared arrays
+// from its `layout`, passed in WindowArgs.L).  The block copies its
+// envs' car planes and integer state from device memory into shared
+// memory once, runs all W ticks there, and writes them back once.
+// Shared arrays keep the env index fastest: a car plane is
+// [slot][road][env] with each slot's row padded to a multiple of 32
+// words, a per-road array [road][env], so
+// the 32 threads of a warp, which hold 32 consecutive (road, env)
+// items, touch 32 distinct banks whatever ring slot each env is at.
+// The global layout (road, slot, env) keeps the G envs of one (road,
+// slot) contiguous, so the copies are coalesced.  A tick is a sequence
+// of phases separated by __syncthreads(), each spread over the block's
+// threads by item (road, intersection or entry road, and env):
+//   (a) phase/elapsed per intersection; the tick's Philox draws per
+//       (slot, env); each entry road's spawn floor and free capacity;
+//   (b) spawning, one thread per env (a serial chain of at most Ks
+//       placements and the renewal chain);
+//   (c) fake leaders per train road;
+//   (d) the IDM per road, serial over its cars, waiting/detected and the
+//       decel count;
+//   (e1) every road's crossing count, and the crossing cars of every
+//       train road copied to a staging area;
+//   (e2) per road: pops, then the accepts, which read the feeder's
+//       crossing cars from the staging area; the per-road overflow count;
+//   (f) rewards per intersection, in the order the bit contract fixes;
+//   (g) per env: steps, global tick, done.
+// A done env's items skip their work; every thread reaches every
+// barrier (no barrier sits inside a per-item branch or loop).  With a
+// `clocks` array, thread 0 of each block adds the cycles of each phase,
+// barrier to barrier, to clocks[phase] (the kernel's phase profile).
 //
-// Telemetry: the TPU kernel writes a (W*Kc, R, B) plane of exit-pop
-// durations because Mosaic has no scatter, and the host scatters it into
-// the trip histogram.  Here the thread that owns an env owns its column
-// of trip_hist, so each exit-road pop adds 1 to its bin in place: no
-// event plane, no atomics.  The telemetry is a template flag, compiled
-// out of the training launch.
+// Order of additions: decel_penalty makes rewards non-dyadic (count /
+// 10), so the order of every addition to a reward is part of the bit
+// contract.  Phase (f) starts from the spawn overflow penalties (added
+// in placement order by the env's spawn thread), adds the decel terms of
+// the intersection's train roads in ascending road order (the TPU
+// kernel's direction-block order) as true divisions by a run-time 10,
+// then the hand-off's overflow penalties: with DECEL summed first and
+// added once (the TPU kernel's one-hot product), without it one by one.
+// Those penalties are multiples of 10 and exact in any order.
 //
-// Design: one thread per env runs the W-tick loop.  The state planes are
-// read and written in place in device memory, indexed [..., b], so a
-// warp's accesses to one (road, slot) are coalesced.  Permutations of
-// the TPU kernel (one-hot matrix products) are index loads of nxt/prev;
-// the hand-off is a loop over roads, each road after its successor, so
-// a feeder's crossing cars are read before the feeder's own pops and
-// pushes overwrite them.
+// Telemetry: each exit-road pop adds 1 to its trip-time bin of
+// trip_hist in device memory with an integer atomicAdd (several road
+// threads of one env may hit one bin; integer adds are exact in any
+// order).  No event plane, as the TPU kernel's host scatter needed.
 //
-// Bound: memory.  A window needs to read and write each env's occupied
-// car slots (x, v, w, 12 B a slot) and one fake-leader slot per road,
-// plus its integer planes, and does a few tens of float operations per
-// car and tick; the car planes are streamed through L1/L2 every tick
-// rather than held in registers or shared memory across the W ticks,
-// which is the next step for speed.
+// Bound: the least work is the car slots a window occupies (a few KB an
+// env) read and written once, which chip_smoke.py counts as bound_ms.
+// This design moves every env's whole rings (R x 19 slots x 12 or 16 B)
+// in and out once a window, 3x that on the bench state: its own floor.
+// Within the window the time is the latency of each road's serial chain
+// of cars through shared memory and of the per-env spawn chain, hidden
+// as far as the resident blocks (shared memory per env sets how many)
+// can hide it.
 //
 // Float discipline: built with -fmad=false (no FMA contraction) and
 // without fast math; pow(., 4) is two squarings, (x - l) - s0 rounds
@@ -58,15 +85,37 @@
 #include <stdint.h>
 
 #define RING 19
-#define MAX_E 64
-#define MAX_I 64
 #define MAX_K 8
+#define MAX_IN 4          // train roads into one intersection
+#define MAX_THREADS 1024
+#define SMEM_MAX 232448   // dynamic shared memory a block may use on sm_90
+
+// phases of the profile (WindowArgs.clocks)
+enum { P_STAGE, P_DRAWS, P_SPAWN, P_LIGHTS, P_IDM, P_CROSS, P_HANDOFF,
+       P_REWARD, P_COMMIT, P_STORE, NPHASE };
 
 // columns of the archetype table (ops/window_cuda.py ARCH_COLUMNS)
 enum { AX, AV, AL, AS0, AA, AB, AT, AV0, NCOL };
 
 // spawn_mode
 enum { SPAWN_SCHEDULE = 0, SPAWN_POISSON = 1, SPAWN_REGULAR = 2 };
+
+// Word offsets of the shared arrays of one block, as ops/window_cuda.py
+// `layout` computes them; the kernel takes them as they are.
+struct Layout {
+  int SS;  // words of one ring slot of a car plane: R * G padded to 32
+  int x, v, w, ai;                                  // RING x SS each
+  int ld, lc, cnt;                                  // R x G
+  int phase, elapsed, pdst, act, rsum, lrew, spen;  // I x G
+  int waiting, detected, accp, lastp, nover, dcnt;  // Rt x G
+  // spawn scratch, phases (a)-(b): E x G, E x G, E x G, ndraw x G
+  int floor_e, free_e, placed, bits;
+  // hand-off staging, phases (e1)-(e2): Kc x Rt x G each
+  int stage_x, stage_v, stage_w, stage_a;
+  int done, steps, gtick, gap, backlog, seed, ovf;  // G each
+  int ndraw;  // Philox draws of one tick and env
+  int words;  // the block's dynamic shared memory in 32-bit words
+};
 
 struct WindowArgs {
   float* x;
@@ -101,14 +150,18 @@ struct WindowArgs {
   const int* dest;
   const int* phase_group;
   const int* entry;
-  const int* order;  // every road after its successor
+  const int* in_roads;  // (I, MAX_IN) train roads into each intersection,
+                        // ascending, -1 past the last
+  unsigned long long* clocks;  // (NPHASE,) phase profile, or null
   long long car_rstride;  // elements from one road's plane to the next
   int B, R, Rt, I, W, Ks, Kc, E;
   int n_renew, slot_first, slot_renew, slot_entry, slot_phase, slot_arch;
   int autoreset, spawn_mode, learn_switch, yellow, emit_trips, nb;
   int decel, k_arch, reg_tpc, reg_batch;
+  int G;  // envs per block
   float length, rate, lam, detect_x, thresh, eps, penalty;
   float c_a, c_t, c_s0, c_l, c_v0, spawn_v, spawn_x, den0;
+  Layout L;  // the block's shared memory
 };
 
 __device__ __forceinline__ float nn(float p) { return p < 0.0f ? 0.0f : p; }
@@ -172,227 +225,335 @@ __device__ __forceinline__ int arch_of(float f, int k) {
   return j;
 }
 
-// Cars at the front of road r past its end, in order, at most Kc.
+// The Philox counter slot of draw q of a tick (rows of the bits array).
+__device__ __forceinline__ int draw_slot(const WindowArgs& a, int q) {
+  if (q == 0) return a.slot_first;
+  if (q <= a.n_renew) return a.slot_renew + q - 1;
+  if (q <= a.n_renew + a.Ks) return a.slot_entry + q - 1 - a.n_renew;
+  return a.slot_arch + q - 1 - a.n_renew - a.Ks;
+}
+
+// Whether the lazy autoreset restarts env b in this window.
+__device__ __forceinline__ bool restarts(const WindowArgs& a, int b) {
+  return a.autoreset && a.done[b];
+}
+
+// Cars at the front of the road of item `it` past its end, in order, at
+// most Kc.
 __device__ __forceinline__ int crossing(const WindowArgs& a, const float* X,
-                                        int r, int ld, int lc) {
+                                        int SS, int it, int ld, int lc) {
   const int n = mod_s(lc - ld);
   const int kmax = n < a.Kc ? n : a.Kc;
   int c = 0;
   for (int k = 1; k <= kmax; ++k) {
-    if (!(X[r * a.car_rstride + mod_s(ld + k) * (long long)a.B] > a.length))
-      break;
+    if (!(X[mod_s(ld + k) * SS + it] > a.length)) break;
     ++c;
   }
   return c;
 }
 
 template <bool EMIT, bool DECEL, bool MULTI>
-__global__ void window_kernel(const WindowArgs a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;
-  const int B = a.B;
+__global__ void __launch_bounds__(MAX_THREADS)
+    window_kernel(const WindowArgs a) {
+  extern __shared__ int sm[];
+  const Layout L = a.L;
+  const int G = a.G, B = a.B, R = a.R, Rt = a.Rt, I = a.I, E = a.E;
+  const int SS = L.SS, RG = R * G, TG = Rt * G;
+  const int b0 = blockIdx.x * G;
+  const int tid = threadIdx.x, nt = blockDim.x;
   const long long rs = a.car_rstride;
-  float* X = a.x + b;
-  float* V = a.v + b;
-  float* Wc = a.w + b;
-  float* AI = MULTI ? a.ai + b : nullptr;
-#define CAR(P, r, s) P[(long long)(r) * rs + (long long)(s) * B]
-#define ROW(P, r) P[(r) * B + b]
+  const float INF = __int_as_float(0x7f800000);
+  float* X = (float*)(sm + L.x);
+  float* V = (float*)(sm + L.v);
+  float* Wc = (float*)(sm + L.w);
+  float* AI = (float*)(sm + L.ai);
+  int* LD = sm + L.ld;
+  int* LC = sm + L.lc;
+  int* CNT = sm + L.cnt;
+  int* PH = sm + L.phase;
+  int* EL = sm + L.elapsed;
+  int* PD = sm + L.pdst;
+  int* ACT = sm + L.act;
+  float* RSUM = (float*)(sm + L.rsum);
+  float* LREW = (float*)(sm + L.lrew);
+  float* SPEN = (float*)(sm + L.spen);
+  int* WAIT = sm + L.waiting;
+  int* DET = sm + L.detected;
+  int* ACCP = sm + L.accp;
+  int* LASTP = sm + L.lastp;
+  int* NOVER = sm + L.nover;
+  int* DCNT = sm + L.dcnt;
+  float* FLOOR = (float*)(sm + L.floor_e);
+  int* FREE = sm + L.free_e;
+  int* PLACED = sm + L.placed;
+  uint32_t* BITS = (uint32_t*)(sm + L.bits);
+  float* SX = (float*)(sm + L.stage_x);  // [k][train road][env]
+  float* SV = (float*)(sm + L.stage_v);
+  float* SW = (float*)(sm + L.stage_w);
+  float* SA = (float*)(sm + L.stage_a);
+  int* DONE = sm + L.done;
+  int* STEPS = sm + L.steps;
+  int* GTICK = sm + L.gtick;
+  int* GAP = sm + L.gap;
+  int* BACKLOG = sm + L.backlog;
+  int* SEED = sm + L.seed;
+  int* OVF = sm + L.ovf;
+  const int ndraw = L.ndraw;
 #define PAR(j, col) a.arch[(j) * NCOL + (col)]
-  const uint32_t key0 = (uint32_t)a.seed[b], key1 = (uint32_t)b;
-  int done = a.done[b];
-  int steps = a.steps[b], gtick = a.gtick[b];
-  int gap = a.gap[b], backlog = a.backlog[b];
-
-  if (a.autoreset && done) {
-    for (int r = 0; r < a.R; ++r) {
-      CAR(X, r, 0) = __int_as_float(0x7f800000);
-      CAR(V, r, 0) = 0.0f;
-      CAR(Wc, r, 0) = 0.0f;
-      if constexpr (MULTI) CAR(AI, r, 0) = 0.0f;
-      ROW(a.leading, r) = 0;
-      ROW(a.lastcar, r) = 0;
-    }
-    for (int i = 0; i < a.I; ++i) {
-      ROW(a.elapsed, i) = 0;
-      ROW(a.passed_dst, i) = 0;
-      ROW(a.phase, i) =
-          a.spawn_mode != SPAWN_SCHEDULE
-              ? (int)(philox_w0((uint32_t)gtick, (uint32_t)(a.slot_phase + i),
-                                key0, key1) & 1u)
-              : hash_phase(gtick, i);
-    }
-    for (int t = 0; t < a.Rt; ++t) ROW(a.waiting, t) = 0;
-    steps = 0;
-    done = 0;
-  }
-  if constexpr (EMIT) {
-    // after the lazy reset: restarted lanes report their new phase
-    for (int i = 0; i < a.I; ++i) {
-      const int changed = ROW(a.phase, i) != a.action[i * B + b];
-      ROW(a.light, i) = (float)((ROW(a.elapsed, i) + 1) * changed) * 0.5f;
-    }
-  }
-  for (int t = 0; t < a.Rt; ++t) {
-    ROW(a.acc_passed, t) = 0;
-    ROW(a.last_passed, t) = 0;
-  }
-  for (int i = 0; i < a.I; ++i) {
-    ROW(a.rew_sum, i) = 0.0f;
-    ROW(a.last_rew, i) = 0.0f;
+// items (row, env) of an n x G shared array, env fastest; a body may
+// `continue` but holds no barrier
+#define ITEMS(n) for (int it = tid; it < (n) * G; it += nt)
+#define ONE(g) (STEPS[g] >= 0 ? 1.0f : 2.0f)  // run-time 1.0
+  long long t_last = a.clocks && tid == 0 ? clock64() : 0;
+// the barrier that ends phase p
+#define SYNC(p)                                                    \
+  __syncthreads();                                                 \
+  if (a.clocks && tid == 0) {                                      \
+    const long long t_now = clock64();                             \
+    atomicAdd(&a.clocks[p], (unsigned long long)(t_now - t_last)); \
+    t_last = t_now;                                                \
   }
 
-  float rew[MAX_I];
-  float pen[DECEL ? MAX_I : 1];  // the hand-off's penalties per intersection
-  int placed[MAX_E], free_e[MAX_E];
-  float floor_e[MAX_E];
+  // -- stage the group's state, with the lazy reset ----------------------
+  for (int it = tid; it < RING * RG; it += nt) {
+    const int s = it / RG, rg = it - s * RG, g = rg % G, r = rg / G;
+    const int b = b0 + g;
+    if (b >= B) continue;
+    const int q = s * SS + rg;
+    if (s == 0 && restarts(a, b)) {
+      X[q] = INF;
+      V[q] = 0.0f;
+      Wc[q] = 0.0f;
+      if constexpr (MULTI) AI[q] = 0.0f;
+    } else {
+      const long long o = r * rs + (long long)s * B + b;
+      X[q] = a.x[o];
+      V[q] = a.v[o];
+      Wc[q] = a.w[o];
+      if constexpr (MULTI) AI[q] = a.ai[o];
+    }
+  }
+  ITEMS(R) {
+    const int g = it % G, r = it / G, b = b0 + g;
+    if (b >= B) continue;
+    const bool rst = restarts(a, b);
+    LD[it] = rst ? 0 : a.leading[r * B + b];
+    LC[it] = rst ? 0 : a.lastcar[r * B + b];
+  }
+  ITEMS(Rt) {
+    const int g = it % G, t = it / G, b = b0 + g;
+    ACCP[it] = 0;
+    LASTP[it] = 0;
+    if (b >= B) continue;
+    WAIT[it] = restarts(a, b) ? 0 : a.waiting[t * B + b];
+    DET[it] = a.detected[t * B + b];
+  }
+  ITEMS(I) {
+    const int g = it % G, i = it / G, b = b0 + g;
+    RSUM[it] = 0.0f;
+    LREW[it] = 0.0f;
+    if (b >= B) continue;
+    const bool rst = restarts(a, b);
+    const int ac = a.action[i * B + b];
+    const int gt = a.gtick[b];
+    int ph = a.phase[i * B + b];
+    if (rst)
+      ph = a.spawn_mode != SPAWN_SCHEDULE
+               ? (int)(philox_w0((uint32_t)gt, (uint32_t)(a.slot_phase + i),
+                                 (uint32_t)a.seed[b], (uint32_t)b) & 1u)
+               : hash_phase(gt, i);
+    const int el = rst ? 0 : a.elapsed[i * B + b];
+    ACT[it] = ac;
+    PH[it] = ph;
+    EL[it] = el;
+    PD[it] = rst ? 0 : a.passed_dst[i * B + b];
+    if constexpr (EMIT) {
+      // after the lazy reset: restarted lanes report their new phase
+      a.light[i * B + b] = (float)((el + 1) * (ph != ac)) * 0.5f;
+    }
+  }
+  if (tid < G) {
+    const int g = tid, b = b0 + g;
+    if (b < B) {
+      const bool rst = restarts(a, b);
+      DONE[g] = rst ? 0 : a.done[b];
+      STEPS[g] = rst ? 0 : a.steps[b];
+      GTICK[g] = a.gtick[b];
+      GAP[g] = a.gap[b];
+      BACKLOG[g] = a.backlog[b];
+      SEED[g] = a.seed[b];
+    } else {  // past the batch: every item skips
+      DONE[g] = 1;
+      STEPS[g] = GTICK[g] = GAP[g] = BACKLOG[g] = SEED[g] = 0;
+    }
+  }
+  SYNC(P_STAGE);
 
   for (int tick = 0; tick < a.W; ++tick) {
-    if (a.spawn_mode == SPAWN_POISSON && gap < 0)
-      gap = gap_draw(uniform24(philox_w0((uint32_t)gtick,
-                                         (uint32_t)a.slot_first, key0, key1)),
-                     a.lam);
-    if (done) continue;  // finished lanes stay frozen
-
-    // -- phase / elapsed ------------------------------------------------
-    for (int i = 0; i < a.I; ++i) {
-      const int ph = ROW(a.phase, i), ac = a.action[i * B + b];
+    // -- (a) phase / elapsed; the tick's draws; entry roads' floors ------
+    if (tid < G) OVF[tid] = 0;
+    ITEMS(I) {
+      const int g = it % G;
+      SPEN[it] = 0.0f;
+      if (DONE[g]) continue;
+      const int ph = PH[it], ac = ACT[it];
       const int flip = (ph != 0) != (ac != 0);
       const int change = a.learn_switch ? ac : flip;
-      ROW(a.phase, i) = a.learn_switch ? flip : ac;
-      ROW(a.elapsed, i) = change == 0 ? ROW(a.elapsed, i) + 1 : 0;
-      rew[i] = 0.0f;
-      if constexpr (DECEL) pen[i] = 0.0f;
+      PH[it] = a.learn_switch ? flip : ac;
+      EL[it] = change == 0 ? EL[it] + 1 : 0;
     }
-    const float one = steps >= 0 ? 1.0f : 2.0f;  // run-time 1.0
-    int ovf = 0;
-
-    // -- spawning -------------------------------------------------------
-    for (int e = 0; e < a.E; ++e) {
-      const int road = a.entry[e];
-      const int ld = ROW(a.leading, road), lc = ROW(a.lastcar, road);
-      float fl = __int_as_float(0x7f800000);
+    ITEMS(ndraw) {
+      // done lanes too: a lane's first gap is drawn even while it is done
+      const int g = it % G, q = it / G, b = b0 + g;
+      if (b >= B) continue;
+      BITS[it] = philox_w0((uint32_t)GTICK[g], (uint32_t)draw_slot(a, q),
+                           (uint32_t)SEED[g], (uint32_t)b);
+    }
+    ITEMS(E) {
+      const int g = it % G, e = it / G;
+      if (DONE[g]) continue;
+      const int ri = a.entry[e] * G + g;
+      const int ld = LD[ri], lc = LC[ri];
+      float fl = INF;
       if (mod_s(lc - ld) > 0) {
+        const int q = lc * SS + ri;
         if constexpr (MULTI) {
           // the tail car's own length and gap
-          const int ta = arch_of(CAR(AI, road, lc), a.k_arch);
-          fl = (CAR(X, road, lc) - PAR(ta, AL)) - PAR(ta, AS0);
+          const int ta = arch_of(AI[q], a.k_arch);
+          fl = (X[q] - PAR(ta, AL)) - PAR(ta, AS0);
         } else {
-          fl = (CAR(X, road, lc) - a.c_l * one) - a.c_s0;
+          fl = (X[q] - a.c_l * ONE(g)) - a.c_s0;
         }
       }
-      floor_e[e] = fl;
-      free_e[e] = mod_s(ld - 1 - lc);
-      placed[e] = 0;
+      FLOOR[it] = fl;
+      FREE[it] = mod_s(ld - 1 - lc);
+      PLACED[it] = 0;
     }
-    int nplace = 0;
-    if (a.spawn_mode == SPAWN_REGULAR) {
-      // a batch of reg_batch cars whenever the global tick hits the
-      // interval; gap and backlog stay untouched
-      const int due = a.reg_tpc ? gtick % a.reg_tpc == 0 : 1;
-      nplace = due ? a.reg_batch : 0;
-    } else if (a.spawn_mode == SPAWN_POISSON) {
-      for (int k = 0; k < a.n_renew; ++k) {
-        if (gap == 0) {
-          ++backlog;
-          gap = gap_draw(
-              uniform24(philox_w0((uint32_t)gtick,
-                                  (uint32_t)(a.slot_renew + k), key0, key1)),
-              a.lam);
-        }
-      }
-      if (gap > 0) --gap;
-      nplace = backlog < a.Ks ? backlog : a.Ks;
-      backlog -= nplace;
-    }
-    for (int j = 0; j < a.Ks; ++j) {
-      int e, aj = 0;
-      if (a.spawn_mode != SPAWN_SCHEDULE) {
-        if (j >= nplace) break;
-        const float u = uniform24(philox_w0(
-            (uint32_t)gtick, (uint32_t)(a.slot_entry + j), key0, key1));
-        e = (int)(u * (float)a.E);
-        e = e < a.E - 1 ? e : a.E - 1;
-        if constexpr (MULTI) {
-          // a Poisson arrival draws its archetype; regular ones are 0
-          if (a.spawn_mode == SPAWN_POISSON) {
-            const float ua = uniform24(philox_w0(
-                (uint32_t)gtick, (uint32_t)(a.slot_arch + j), key0, key1));
-            aj = (int)(ua * (float)a.k_arch);
-            aj = aj < a.k_arch - 1 ? aj : a.k_arch - 1;
-          }
-        }
-      } else {
-        e = a.spawn_rows[(tick * a.Ks + j) * B + b];
-        if (e < 0) continue;
-        if constexpr (MULTI) aj = a.spawn_ai[(tick * a.Ks + j) * B + b];
-      }
-      const int road = a.entry[e];
-      if (placed[e] >= free_e[e]) {
-        ovf = 1;
-        const int i = a.dest[road];
-        rew[i] = rew[i] + (-a.penalty);
-        continue;
-      }
-      ++placed[e];
-      const int s = mod_s(ROW(a.lastcar, road) + placed[e]);
-      if constexpr (MULTI) {
-        const int ap = aj > 0 && aj < a.k_arch ? aj : 0;
-        const float xj = fmin_(PAR(ap, AX), floor_e[e]);
-        floor_e[e] = (xj - PAR(ap, AL)) - PAR(ap, AS0);
-        CAR(X, road, s) = xj;
-        CAR(V, road, s) = PAR(ap, AV);
-        CAR(AI, road, s) = (float)aj;
-      } else {
-        const float xj = fmin_(a.spawn_x, floor_e[e]);
-        floor_e[e] = (xj - a.c_l * one) - a.c_s0;
-        CAR(X, road, s) = xj;
-        CAR(V, road, s) = a.spawn_v;
-      }
-      CAR(Wc, road, s) = (float)steps;
-    }
-    for (int e = 0; e < a.E; ++e) {
-      const int road = a.entry[e];
-      ROW(a.lastcar, road) = mod_s(ROW(a.lastcar, road) + placed[e]);
-    }
+    SYNC(P_DRAWS);
 
-    // -- lights: the fake leader of every train road ----------------------
-    for (int t = 0; t < a.Rt; ++t) {
-      const int i = a.dest[t];
-      const int red = (a.phase_group[t] == ROW(a.phase, i)) ||
-                      (ROW(a.elapsed, i) < a.yellow);
+    // -- (b) spawning: one thread per env --------------------------------
+    if (tid < G) {
+      const int g = tid, b = b0 + g;
+      int gap = GAP[g], backlog = BACKLOG[g];
+      if (b < B && a.spawn_mode == SPAWN_POISSON && gap < 0)
+        gap = gap_draw(uniform24(BITS[g]), a.lam);
+      if (!DONE[g]) {
+        const float one = ONE(g);
+        int nplace = 0;
+        if (a.spawn_mode == SPAWN_REGULAR) {
+          // a batch of reg_batch cars whenever the global tick hits the
+          // interval; gap and backlog stay untouched
+          const int due = a.reg_tpc ? GTICK[g] % a.reg_tpc == 0 : 1;
+          nplace = due ? a.reg_batch : 0;
+        } else if (a.spawn_mode == SPAWN_POISSON) {
+          for (int k = 0; k < a.n_renew; ++k) {
+            if (gap == 0) {
+              ++backlog;
+              gap = gap_draw(uniform24(BITS[(1 + k) * G + g]), a.lam);
+            }
+          }
+          if (gap > 0) --gap;
+          nplace = backlog < a.Ks ? backlog : a.Ks;
+          backlog -= nplace;
+        }
+        for (int j = 0; j < a.Ks; ++j) {
+          int e, aj = 0;
+          if (a.spawn_mode != SPAWN_SCHEDULE) {
+            if (j >= nplace) break;
+            const float u = uniform24(BITS[(1 + a.n_renew + j) * G + g]);
+            e = (int)(u * (float)E);
+            e = e < E - 1 ? e : E - 1;
+            if constexpr (MULTI) {
+              // a Poisson arrival draws its archetype; regular ones are 0
+              if (a.spawn_mode == SPAWN_POISSON) {
+                const float ua =
+                    uniform24(BITS[(1 + a.n_renew + a.Ks + j) * G + g]);
+                aj = (int)(ua * (float)a.k_arch);
+                aj = aj < a.k_arch - 1 ? aj : a.k_arch - 1;
+              }
+            }
+          } else {
+            e = a.spawn_rows[(tick * a.Ks + j) * B + b];
+            if (e < 0) continue;
+            if constexpr (MULTI) aj = a.spawn_ai[(tick * a.Ks + j) * B + b];
+          }
+          const int road = a.entry[e], ri = road * G + g, ei = e * G + g;
+          if (PLACED[ei] >= FREE[ei]) {
+            OVF[g] = 1;
+            const int ii = a.dest[road] * G + g;
+            SPEN[ii] = SPEN[ii] + (-a.penalty);
+            continue;
+          }
+          const int p = ++PLACED[ei];
+          const int q = mod_s(LC[ri] + p) * SS + ri;
+          if constexpr (MULTI) {
+            const int ap = aj > 0 && aj < a.k_arch ? aj : 0;
+            const float xj = fmin_(PAR(ap, AX), FLOOR[ei]);
+            FLOOR[ei] = (xj - PAR(ap, AL)) - PAR(ap, AS0);
+            X[q] = xj;
+            V[q] = PAR(ap, AV);
+            AI[q] = (float)aj;
+          } else {
+            const float xj = fmin_(a.spawn_x, FLOOR[ei]);
+            FLOOR[ei] = (xj - a.c_l * one) - a.c_s0;
+            X[q] = xj;
+            V[q] = a.spawn_v;
+          }
+          Wc[q] = (float)STEPS[g];
+        }
+        for (int e = 0; e < E; ++e) {
+          const int ri = a.entry[e] * G + g;
+          LC[ri] = mod_s(LC[ri] + PLACED[e * G + g]);
+        }
+      }
+      GAP[g] = gap;
+      BACKLOG[g] = backlog;
+    }
+    SYNC(P_SPAWN);
+
+    // -- (c) lights: the fake leader of every train road ------------------
+    ITEMS(Rt) {
+      const int g = it % G, t = it / G;
+      if (DONE[g]) continue;
+      const int ii = a.dest[t] * G + g;
+      const int red = (a.phase_group[t] == PH[ii]) || (EL[ii] < a.yellow);
       float fx = a.length;
       if (!red) {
-        const int nx = a.nxt[t];
-        const int nl = ROW(a.leading, nx), nc = ROW(a.lastcar, nx);
-        fx = nl == nc ? __int_as_float(0x7f800000) : CAR(X, nx, nc) + a.length;
+        const int ni = a.nxt[t] * G + g;
+        const int nl = LD[ni], nc = LC[ni];
+        fx = nl == nc ? INF : X[nc * SS + ni] + a.length;
       }
-      CAR(X, t, ROW(a.leading, t)) = fx;
+      X[LD[it] * SS + it] = fx;
     }
+    SYNC(P_LIGHTS);
 
-    // -- IDM, waiting / detected -----------------------------------------
-    const float den = a.den0 * one;
-    const float v0p = a.c_v0 * one;
-    for (int r = 0; r < a.R; ++r) {
-      const int ld = ROW(a.leading, r), lc = ROW(a.lastcar, r);
+    // -- (d) IDM, waiting / detected, decel count: per road ---------------
+    ITEMS(R) {
+      const int g = it % G, r = it / G;
+      if (DONE[g]) continue;
+      const float one = ONE(g);
+      const float den = a.den0 * one;
+      const float v0p = a.c_v0 * one;
+      const int ld = LD[it], lc = LC[it];
       const int n = mod_s(lc - ld);
       const int wrapped = ld > lc;
-      float lx = CAR(X, r, ld), lv = CAR(V, r, ld);
+      float lx = X[ld * SS + it], lv = V[ld * SS + it];
       float ll = 0.0f;  // MULTI: the leader's length; the fake leader has 0
       int wait_inc = 0, det = 0, decel = 0;
       for (int k = 1; k <= n; ++k) {
         const int s = mod_s(ld + k);
-        const float xs = CAR(X, r, s), vs = CAR(V, r, s);
+        const int q = s * SS + it;
+        const float xs = X[q], vs = V[q];
         float dv;
         if constexpr (MULTI) {
-          const int j = arch_of(CAR(AI, r, s), a.k_arch);
+          const int j = arch_of(AI[q], a.k_arch);
           const float pa = PAR(j, AA), pb = PAR(j, AB);
           const float dn = (2.0f * sqrtf(pa * pb)) * one;
           const float desired =
               PAR(j, AS0) + nn(nn(vs * PAR(j, AT)) + (vs * (vs - lv)) / dn);
           const float gapp = (lx - xs) - ll;
-          const float q = vs / (PAR(j, AV0) * one);
-          const float q2 = q * q;
+          const float qq = vs / (PAR(j, AV0) * one);
+          const float q2 = qq * qq;
           const float free_flow = nn(q2 * q2);
           const float rr = desired / (gapp + a.eps);
           dv = pa * ((1.0f - free_flow) - nn(rr * rr));
@@ -402,8 +563,8 @@ __global__ void window_kernel(const WindowArgs a) {
           const float desired =
               a.c_s0 + nn(nn(vs * a.c_t) + (vs * (vs - lv)) / den);
           const float gapp = (lx - xs) - ldl;
-          const float q = vs / v0p;
-          const float q2 = q * q;
+          const float qq = vs / v0p;
+          const float q2 = qq * qq;
           const float free_flow = nn(q2 * q2);
           const float rr = desired / (gapp + a.eps);
           dv = a.c_a * ((1.0f - free_flow) - nn(rr * rr));
@@ -413,80 +574,85 @@ __global__ void window_kernel(const WindowArgs a) {
         const float dxp = nn(a.rate * vs) + fin((0.5f * dvr) * a.rate);
         const float xn = xs + nn((dxp > 0.0f ? 1.0f : 0.0f) * dxp);
         const float vn = nn(vs + fin(dvr));
-        CAR(X, r, s) = xn;
-        CAR(V, r, s) = vn;
+        X[q] = xn;
+        V[q] = vn;
         lx = xs;
         lv = vs;
         const float metric = (wrapped && s <= lc) ? xn : vn;
         wait_inc += metric < a.thresh;
         det += xn > a.detect_x;
       }
-      if (r < a.Rt && n > 0) {
-        ROW(a.waiting, r) += wait_inc;
-        ROW(a.detected, r) = det;
+      if (r < Rt) {
+        if (n > 0) {
+          WAIT[it] += wait_inc;
+          DET[it] = det;
+        }
+        if constexpr (DECEL) DCNT[it] = decel;
       }
-      if constexpr (DECEL) {
-        // a true division by a run-time 10, as the TPU kernel's
-        if (r < a.Rt) {
-          const int i = a.dest[r];
-          rew[i] = rew[i] + (float)decel / (10.0f * one);
+    }
+    SYNC(P_IDM);
+
+    // -- (e1) crossing counts; train roads' crossing cars to the stage ----
+    ITEMS(R) {
+      const int g = it % G, r = it / G;
+      if (DONE[g]) continue;
+      const int ld = LD[it];
+      const int c = crossing(a, X, SS, it, ld, LC[it]);
+      CNT[it] = c;
+      if (r < Rt) {
+        for (int k = 0; k < c; ++k) {
+          const int q = mod_s(ld + 1 + k) * SS + it, si = k * TG + it;
+          SX[si] = X[q];
+          SV[si] = V[q];
+          SW[si] = Wc[q];
+          if constexpr (MULTI) SA[si] = AI[q];
         }
       }
     }
+    SYNC(P_CROSS);
 
-    // -- hand-off, each road after its successor ---------------------------
-    for (int oi = 0; oi < a.R; ++oi) {
-      const int f = a.order[oi];
-      const int ldf = ROW(a.leading, f), lcf = ROW(a.lastcar, f);
-      const int cnt = crossing(a, X, f, ldf, lcf);
-      const float fx = CAR(X, f, ldf), fv = CAR(V, f, ldf),
-                  fw = CAR(Wc, f, ldf);
-      const float fa = MULTI ? CAR(AI, f, ldf) : 0.0f;
+    // -- (e2) per road: pops, then accepts from the feeder's stage --------
+    ITEMS(R) {
+      const int g = it % G, f = it / G, b = b0 + g;
+      if (DONE[g]) continue;
+      const float one = ONE(g);
+      const int ldf = LD[it], lcf = LC[it], cnt = CNT[it];
+      const int qf = ldf * SS + it;
+      const float fx = X[qf], fv = V[qf], fw = Wc[qf];
+      const float fa = MULTI ? AI[qf] : 0.0f;
       // the receiver's tail, read before its own pops
-      const float tail = CAR(X, f, lcf);
-      const float tail_a = MULTI ? CAR(AI, f, lcf) : 0.0f;
+      const float tail = X[lcf * SS + it];
+      const float tail_a = MULTI ? AI[lcf * SS + it] : 0.0f;
       if constexpr (EMIT) {
-        if (f >= a.Rt) {  // an exit road: its crossing cars leave the map
+        if (f >= Rt) {  // an exit road: its crossing cars leave the map
           for (int k = 1; k <= cnt; ++k) {
-            const float wk = CAR(Wc, f, mod_s(ldf + k));
+            const float wk = Wc[mod_s(ldf + k) * SS + it];
             // clamp before the cast: casting +-inf to int is undefined
-            const int dur = steps - (int)(wk < 0.0f ? 0.0f
-                                          : (wk > 1e9f ? 1e9f : wk));
+            const int dur = STEPS[g] - (int)(wk < 0.0f ? 0.0f
+                                             : (wk > 1e9f ? 1e9f : wk));
             const int bin = dur < 0 ? 0 : (dur > a.nb - 1 ? a.nb - 1 : dur);
-            a.trip_hist[(long long)bin * B + b] += 1;
+            atomicAdd(&a.trip_hist[(long long)bin * B + b], 1);
           }
         }
       }
       for (int k = 1; k <= cnt; ++k) {
-        const int s = mod_s(ldf + k);
-        CAR(X, f, s) = fx;
-        CAR(V, f, s) = fv;
-        CAR(Wc, f, s) = fw;
-        if constexpr (MULTI) CAR(AI, f, s) = fa;
+        const int q = mod_s(ldf + k) * SS + it;
+        X[q] = fx;
+        V[q] = fv;
+        Wc[q] = fw;
+        if constexpr (MULTI) AI[q] = fa;
       }
       const int new_ld = mod_s(ldf + cnt);
       const int p = a.prev[f];
-      int cnt_in = 0, ldp = 0;
-      if (p >= 0 && p < a.Rt) {
-        ldp = ROW(a.leading, p);
-        cnt_in = crossing(a, X, p, ldp, ROW(a.lastcar, p));
-      }
+      const int pi = p * G + g;
+      const int cnt_in = p >= 0 && p < Rt ? CNT[pi] : 0;
       const int ff = p >= 0 && p < f;  // feeder handed off first
       const int free2 = mod_s((ff ? ldf : new_ld) - 1 - lcf);
       const int acc = cnt_in < free2 ? cnt_in : free2;
-      if (cnt_in > acc) {
-        ovf = 1;
-        if (f < a.Rt) {
-          const int i = a.dest[f];
-          const float dp = -a.penalty * (float)(cnt_in - acc);
-          if constexpr (DECEL)
-            pen[i] = pen[i] + dp;
-          else
-            rew[i] = rew[i] + dp;
-        }
-      }
+      if (cnt_in > acc) OVF[g] = 1;
+      if (f < Rt) NOVER[it] = cnt_in - acc;
       const int occ = ff ? (ldf != lcf) : (new_ld != lcf);
-      float floor2 = __int_as_float(0x7f800000);
+      float floor2 = INF;
       if (occ) {
         if constexpr (MULTI) {
           const int ta = arch_of(tail_a, a.k_arch);
@@ -496,73 +662,194 @@ __global__ void window_kernel(const WindowArgs a) {
         }
       }
       for (int k = 0; k < acc; ++k) {
-        const int ss = mod_s(ldp + 1 + k), sd = mod_s(lcf + 1 + k);
-        const float xin = fmin_(CAR(X, p, ss) - a.length, floor2);
-        CAR(X, f, sd) = xin;
-        CAR(V, f, sd) = CAR(V, p, ss);
-        CAR(Wc, f, sd) = CAR(Wc, p, ss);
+        const int si = k * TG + pi, sd = mod_s(lcf + 1 + k) * SS + it;
+        const float xin = fmin_(SX[si] - a.length, floor2);
+        X[sd] = xin;
+        V[sd] = SV[si];
+        Wc[sd] = SW[si];
         if constexpr (MULTI) {
           // each accepted car becomes the tail: its own length and gap
           // chain the next floor
-          const float ain = CAR(AI, p, ss);
-          CAR(AI, f, sd) = ain;
+          const float ain = SA[si];
+          AI[sd] = ain;
           const int ja = arch_of(ain, a.k_arch);
           floor2 = (xin - PAR(ja, AL)) - PAR(ja, AS0);
         } else {
           floor2 = (xin - a.c_l * one) - a.c_s0;
         }
       }
-      ROW(a.leading, f) = new_ld;
-      ROW(a.lastcar, f) = mod_s(lcf + acc);
-      if (f < a.Rt) {
-        ROW(a.acc_passed, f) += cnt;
-        ROW(a.last_passed, f) = cnt;
-        if (cnt > 0) ROW(a.passed_dst, a.dest[f]) = 1;
+      LD[it] = new_ld;
+      LC[it] = mod_s(lcf + acc);
+      if (f < Rt) {
+        ACCP[it] += cnt;
+        LASTP[it] = cnt;
+        if (cnt > 0) PD[a.dest[f] * G + g] = 1;
       }
     }
+    SYNC(P_HANDOFF);
 
-    if constexpr (DECEL) {
-      for (int i = 0; i < a.I; ++i) rew[i] = rew[i] + pen[i];
+    // -- (f) rewards per intersection -------------------------------------
+    ITEMS(I) {
+      const int g = it % G, i = it / G;
+      if (DONE[g]) continue;
+      const float one = ONE(g);
+      const int* in = a.in_roads + i * MAX_IN;
+      float rew = SPEN[it];
+      if constexpr (DECEL) {
+        // a true division by a run-time 10, as the TPU kernel's
+        for (int d = 0; d < MAX_IN; ++d)
+          if (in[d] >= 0)
+            rew = rew + (float)DCNT[in[d] * G + g] / (10.0f * one);
+        float pen = 0.0f;
+        for (int d = 0; d < MAX_IN; ++d) {
+          const int n_over = in[d] >= 0 ? NOVER[in[d] * G + g] : 0;
+          if (n_over > 0) pen = pen + -a.penalty * (float)n_over;
+        }
+        rew = rew + pen;
+      } else {
+        for (int d = 0; d < MAX_IN; ++d) {
+          const int n_over = in[d] >= 0 ? NOVER[in[d] * G + g] : 0;
+          if (n_over > 0) rew = rew + -a.penalty * (float)n_over;
+        }
+      }
+      RSUM[it] = RSUM[it] + rew;
+      LREW[it] = rew;
     }
+    SYNC(P_REWARD);
 
-    // -- commit the tick ---------------------------------------------------
-    ++steps;
-    ++gtick;
-    for (int i = 0; i < a.I; ++i) {
-      ROW(a.rew_sum, i) = ROW(a.rew_sum, i) + rew[i];
-      ROW(a.last_rew, i) = rew[i];
+    // -- (g) commit the tick: per env --------------------------------------
+    if (tid < G && !DONE[tid]) {
+      ++STEPS[tid];
+      ++GTICK[tid];
+      DONE[tid] = OVF[tid];
     }
-    done = ovf;
+    SYNC(P_COMMIT);
   }
-  a.done[b] = (unsigned char)done;
-  a.steps[b] = steps;
-  a.gtick[b] = gtick;
-  a.gap[b] = gap;
-  a.backlog[b] = backlog;
-#undef CAR
-#undef ROW
+
+  // -- write the group's state back ---------------------------------------
+  for (int it = tid; it < RING * RG; it += nt) {
+    const int s = it / RG, rg = it - s * RG, g = rg % G, r = rg / G;
+    const int b = b0 + g;
+    if (b >= B) continue;
+    const int q = s * SS + rg;
+    const long long o = r * rs + (long long)s * B + b;
+    a.x[o] = X[q];
+    a.v[o] = V[q];
+    a.w[o] = Wc[q];
+    if constexpr (MULTI) a.ai[o] = AI[q];
+  }
+  ITEMS(R) {
+    const int g = it % G, r = it / G, b = b0 + g;
+    if (b >= B) continue;
+    a.leading[r * B + b] = LD[it];
+    a.lastcar[r * B + b] = LC[it];
+  }
+  ITEMS(Rt) {
+    const int g = it % G, t = it / G, b = b0 + g;
+    if (b >= B) continue;
+    a.waiting[t * B + b] = WAIT[it];
+    a.detected[t * B + b] = DET[it];
+    a.acc_passed[t * B + b] = ACCP[it];
+    a.last_passed[t * B + b] = LASTP[it];
+  }
+  ITEMS(I) {
+    const int g = it % G, i = it / G, b = b0 + g;
+    if (b >= B) continue;
+    a.phase[i * B + b] = PH[it];
+    a.elapsed[i * B + b] = EL[it];
+    a.passed_dst[i * B + b] = (unsigned char)PD[it];
+    a.rew_sum[i * B + b] = RSUM[it];
+    a.last_rew[i * B + b] = LREW[it];
+  }
+  if (tid < G && b0 + tid < B) {
+    const int g = tid, b = b0 + g;
+    a.done[b] = (unsigned char)DONE[g];
+    a.steps[b] = STEPS[g];
+    a.gtick[b] = GTICK[g];
+    a.gap[b] = GAP[g];
+    a.backlog[b] = BACKLOG[g];
+  }
+  if (a.clocks) {  // the same for every thread of the block
+    SYNC(P_STORE);
+  }
 #undef PAR
+#undef ITEMS
+#undef ONE
+#undef SYNC
 }
 
-extern "C" int window_launch(WindowArgs a, void* stream) {
-  if (a.E > MAX_E || a.I > MAX_I || a.k_arch < 1 || a.k_arch > MAX_K)
-    return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const int blocks = (a.B + threads - 1) / threads;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int v = (a.emit_trips ? 1 : 0) | (a.decel ? 2 : 0) |
-                (a.k_arch > 1 ? 4 : 0);
-#define LAUNCH(E, D, M) window_kernel<E, D, M><<<blocks, threads, 0, st>>>(a)
+typedef void (*WindowFn)(const WindowArgs);
+
+// The instance for variant bits (emit | decel << 1 | multi << 2).
+static WindowFn instance(int v) {
   switch (v) {
-    case 0: LAUNCH(false, false, false); break;
-    case 1: LAUNCH(true, false, false); break;
-    case 2: LAUNCH(false, true, false); break;
-    case 3: LAUNCH(true, true, false); break;
-    case 4: LAUNCH(false, false, true); break;
-    case 5: LAUNCH(true, false, true); break;
-    case 6: LAUNCH(false, true, true); break;
-    default: LAUNCH(true, true, true); break;
+    case 0: return window_kernel<false, false, false>;
+    case 1: return window_kernel<true, false, false>;
+    case 2: return window_kernel<false, true, false>;
+    case 3: return window_kernel<true, true, false>;
+    case 4: return window_kernel<false, false, true>;
+    case 5: return window_kernel<true, false, true>;
+    case 6: return window_kernel<false, true, true>;
+    default: return window_kernel<true, true, true>;
   }
-#undef LAUNCH
+}
+
+static int variant_of(const WindowArgs& a) {
+  return (a.emit_trips ? 1 : 0) | (a.decel ? 2 : 0) | (a.k_arch > 1 ? 4 : 0);
+}
+
+// Lets every instance take up to SMEM_MAX bytes of dynamic shared memory
+// on the current device (the default is 48 KB), once per device.
+static int prepare(void) {
+  static bool done[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (done[dev]) return 0;
+  for (int v = 0; v < 8; ++v) {
+    e = cudaFuncSetAttribute((const void*)instance(v),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute((const void*)instance(v),
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+  }
+  done[dev] = true;
+  return 0;
+}
+
+// Refuses arguments the kernel does not take: fewer threads than envs
+// a block (the per-env phases run one thread per env), more than a
+// block may have, or more shared memory than a block may use.
+static int check(const WindowArgs& a, int threads) {
+  if (a.k_arch < 1 || a.k_arch > MAX_K || a.G < 1 || a.Kc < 1 ||
+      threads < a.G || threads > MAX_THREADS || a.L.words < 1 ||
+      a.L.words > SMEM_MAX / 4)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+extern "C" int window_launch(WindowArgs a, int threads, void* stream) {
+  int rc = check(a, threads);
+  if (rc) return rc;
+  if ((rc = prepare())) return rc;
+  void* args[] = {&a};
+  const cudaError_t e = cudaLaunchKernel(
+      (const void*)instance(variant_of(a)), dim3((a.B + a.G - 1) / a.G),
+      dim3(threads), args, (size_t)a.L.words * 4, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of the instance `a` selects at this geometry.
+extern "C" int window_occupancy(WindowArgs a, int threads, int* blocks) {
+  int rc = check(a, threads);
+  if (rc) return rc;
+  if ((rc = prepare())) return rc;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, (const void*)instance(variant_of(a)), threads,
+      (size_t)a.L.words * 4);
 }

@@ -69,14 +69,27 @@ def build(name: str) -> dict:
     return {"path": str(target), "seconds": seconds, "log": proc.stdout}
 
 
+def _kernel_name(mangled: str) -> str:
+    """``name<flag,...>`` for a kernel template on bool flags, else the
+    mangled name."""
+    m = re.match(r"_Z\d+(\w+?)I((?:Lb[01]E)+)E", mangled)
+    if not m:
+        return mangled
+    flags = ",".join("true" if f == "1" else "false"
+                     for f in re.findall(r"Lb([01])E", m.group(2)))
+    return f"{m.group(1)}<{flags}>"
+
+
 def ptxas_usage(log: str) -> list[dict]:
     """Registers, stack and spill bytes per kernel from ptxas -v output."""
     rows = []
     for m in re.finditer(
+            r"Function properties for (\S+)\s*\n\s*"
             r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
             r"(\d+) bytes spill loads\s*\n[^\n]*Used (\d+) registers", log):
-        rows.append({"stack_bytes": int(m.group(1)),
-                     "spill_store_bytes": int(m.group(2)),
-                     "spill_load_bytes": int(m.group(3)),
-                     "registers": int(m.group(4))})
+        rows.append({"kernel": _kernel_name(m.group(1)),
+                     "stack_bytes": int(m.group(2)),
+                     "spill_store_bytes": int(m.group(3)),
+                     "spill_load_bytes": int(m.group(4)),
+                     "registers": int(m.group(5))})
     return rows

@@ -107,8 +107,6 @@ class WindowSpec:
     dest: np.ndarray
     phase_group: np.ndarray
     entry: np.ndarray
-    # each road after its successor: the hand-off order of the kernel
-    downstream_first: np.ndarray
     # float32 (k, NPARAMS) car archetype table; k > 1 adds the per-car
     # archetype-index plane "ai" to the state
     arch: np.ndarray
@@ -168,12 +166,6 @@ def make_window_spec(topo: GridRoad, cfg: Config,
             f"={Ks}; raise the cap to at least the batch size")
     a = arch[0]
     f = lambda val: float(np.float32(val))
-    depth = np.zeros(topo.roads, np.int64)
-    for r in range(topo.roads):
-        k = r
-        while topo.nxt[k] >= 0:
-            k = topo.nxt[k]
-            depth[r] += 1
     return WindowSpec(
         R=topo.roads, Rt=topo.train_roads, I=topo.intersections,
         W=int(cfg.light_iterations), Ks=Ks,
@@ -188,7 +180,6 @@ def make_window_spec(topo: GridRoad, cfg: Config,
         nxt=topo.nxt.copy(), prev=topo.prev.copy(), dest=topo.dest.copy(),
         phase_group=topo.phase_group.copy(),
         entry=np.asarray(topo.entrypoints, np.int32).copy(),
-        downstream_first=np.argsort(depth, kind="stable").astype(np.int32),
         arch=arch, c_a=f(a[C.A]), c_t=f(a[C.T]), c_s0=f(a[C.S0]),
         c_l=f(a[C.L]), c_v0=f(a[C.V0]), spawn_v=f(a[C.V]), spawn_x=f(a[C.X]),
         den0=f(np.float32(2 * np.sqrt(np.float32(a[C.A])

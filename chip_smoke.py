@@ -16,7 +16,13 @@ Phases, one JSON line each:
    bit-equal.
 4. env_parity: the batched env on the card against the same env on the
    CPU (schedule mode, 64 envs, reset + 10 lazy steps): obs, reward,
-   done and state bit-equal.
+   done and state bit-equal.  exact_parity: the same under --exact,
+   each env with its own ScheduleStream of the same seeds, 3x3 of 100 m
+   roads, 64 envs, a reset from the state's reset stream, three
+   episodes with a schedule refresh at the top of each (past one
+   window's ticks, with lazy resets), then a second full reset; k = 1
+   and the two-archetype table (``aidx`` in the stream).  Every leaf
+   bit-equal, the reset counter included.
 5. bench: the benchmark path -- make_batched_env on a 3x3 grid of 250 m
    roads, 4096 envs, device spawns, remi, lazy autoreset; reset, 24
    warm-up agent steps, then 120 agent steps timed best of 3, each
@@ -35,6 +41,18 @@ Phases, one JSON line each:
    launches must equal the windows it ran, by variant; the loss must
    be finite and the validation must return trip and light times.  Then
    a timed training episode: agent-step ms and env-steps/s.
+   exact_qlearn: the same trainer under --exact (host MT19937 streams,
+   ``--exact_envs`` envs, 256 by default, cut from the JAX defaults'
+   1024 for the host stream's time): 2 training episodes with a
+   validation, then a validate-mode restore of 2 episodes; launches ==
+   windows by variant; the seconds of every stream window (first,
+   refreshes, the restore's fast-forward) and a timed training episode.
+   conv_qlearn: qlearn with ConvQNet on the 5x5 grid (--conv_gru
+   --occupancy_obs, history 20, 2048 envs, envs per block 6): 2
+   training episodes with a validation and a validate-mode restore,
+   launches == windows; a timed episode and the window's share of it;
+   the card's ConvQNet forward against the CPU's on the same weights and
+   observation stack, TF32 off, within 1e-5 of the largest |Q|.
 8. variant_parity: the decel_penalty, regular-spawn and k > 1
    (two-archetype) variants against their plain version on the card,
    3x3 grid, 4096 envs, 50 windows, autoreset on: decel with schedule
@@ -86,6 +104,7 @@ script exits non-zero at once.
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import importlib
 import importlib.util
@@ -104,14 +123,20 @@ import numpy as np
 import torch
 
 from traffic_env_tpu_torch import constants as C
-from traffic_env_tpu_torch.algorithms import baselines, qlearn, run_alg
-from traffic_env_tpu_torch.algorithms.common import build_env
+from traffic_env_tpu_torch.algorithms import (baselines, common, qlearn,
+                                              run_alg)
+from traffic_env_tpu_torch.algorithms.common import (attach_schedule_stream,
+                                                     build_env,
+                                                     exact_chunk_ticks,
+                                                     exact_max_per_tick,
+                                                     refresh_env_schedule)
 from traffic_env_tpu_torch.config import Config, derive_spawn_rate
 from traffic_env_tpu_torch.constants import RING
 from traffic_env_tpu_torch.envs import fast_core
 from traffic_env_tpu_torch.envs.rollout import (bind_schedule,
                                                 make_batched_env,
                                                 random_rollout)
+from traffic_env_tpu_torch.envs.spawn import ScheduleStream
 from traffic_env_tpu_torch.envs.structs import SpawnSchedule
 from traffic_env_tpu_torch.interop import sim_to_arrays
 from traffic_env_tpu_torch.ops import _build, window_cuda
@@ -628,9 +653,10 @@ def batch_scaling(spec, sim, I, B, ms):
 
 def qlearn_config(**kw):
     """The flagship trainer at the JAX package's default widths on
-    4096 envs."""
-    return Config(trainer="qlearn", num_envs=N_ENVS,
-                  platform="cpu" if DEVICE == "cpu" else "", **kw).derive()
+    4096 envs (unless ``num_envs`` is given)."""
+    return Config(**{"trainer": "qlearn", "num_envs": N_ENVS,
+                     "platform": "cpu" if DEVICE == "cpu" else "",
+                     **kw}).derive()
 
 
 def read_metrics(logdir):
@@ -721,6 +747,337 @@ def qlearn_phase(card):
     emit(row)
     if not all(math.isfinite(x) for x in stats):
         raise SmokeFailure("qlearn timing episode gave a non-finite stat")
+    return train_row, val_row, row
+
+
+@contextlib.contextmanager
+def stream_timer():
+    """Times every ``ScheduleStream.window`` call made inside the block:
+    a list of {seconds, ticks generated, envs}, filled as they run."""
+    calls = []
+    real = ScheduleStream.window
+
+    def timed(self, gticks):
+        before = int(self._next.sum())
+        t0 = time.perf_counter()
+        out = real(self, gticks)
+        calls.append({"seconds": time.perf_counter() - t0,
+                      "ticks_generated": int(self._next.sum()) - before,
+                      "envs": self.n_envs})
+        return out
+
+    ScheduleStream.window = timed
+    try:
+        yield calls
+    finally:
+        ScheduleStream.window = real
+
+
+def exact_parity_case(name, topo, cfg, archetypes, B=64, episodes=3,
+                      seed=60):
+    """The CUDA env and the CPU env, each with its own ScheduleStream
+    of the same seeds (--exact), from a reset drawn from the state's
+    reset stream, on the same random actions: ``episodes`` episodes of
+    lazy-autoreset steps with a schedule refresh at the top of each,
+    then a second full reset.  obs, reward, done and every SimState
+    leaf (the reset counter included) must be bit-equal."""
+    I = topo.intersections
+    k = exact_max_per_tick(cfg)
+    chunk = exact_chunk_ticks(cfg)
+    steps = cfg.episode_len
+    acts = np.random.RandomState(seed).randint(
+        2, size=(episodes * steps, I, B)).astype(np.int32)
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        stream = ScheduleStream(topo, cfg, [cfg.seed + i for i in range(B)],
+                                chunk, k, archetypes=archetypes)
+        benv = attach_schedule_stream(make_batched_env(
+            topo, cfg, B, on_device_spawns=False, max_spawns_per_tick=k,
+            device=dev, archetypes=archetypes), stream)
+        gen = torch.Generator()
+        gen.manual_seed(seed)
+        st, obs = benv.reset(benv.init(gen))
+        trace, dones, bases = [obs.cpu()], 0, []
+        for e in range(episodes):
+            st = refresh_env_schedule(benv, st)
+            bases.append(int(st.sched.base.min()))
+            for t in range(steps):
+                st, obs, rew, done, _ = benv.step_autoreset_lazy(
+                    st, torch.as_tensor(acts[e * steps + t], device=dev))
+                trace += [obs.cpu(), rew.cpu(), done.cpu()]
+                dones += int(done.sum())
+        st, obs = benv.reset(st)
+        trace.append(obs.cpu())
+        outs[dev] = (trace, sim_to_arrays(st.sim), dones, bases, st)
+    (tk, sk, dones, bases, st), (tp, sp, _, _, _) = outs[DEVICE], outs["cpu"]
+    eq_trace = len(tk) == len(tp) and all(torch.equal(a, b)
+                                          for a, b in zip(tk, tp))
+    unequal = sorted(n for n in sp if not np.array_equal(sk[n], sp[n]))
+    row = {"phase": "exact_parity", "case": name, "envs": B,
+           "episodes": episodes, "agent_steps": episodes * steps,
+           "rows_per_tick": k, "chunk_ticks": chunk,
+           "refresh_bases_min": bases,
+           "global_tick_min": int(sk["global_tick"].min()),
+           "lazy_resets": dones,
+           "reset_counter": sorted(set(sk["resets"].tolist())),
+           "max_arrivals_per_tick_in_window": int(st.sched.counts.max()),
+           "obs_rew_done_equal": eq_trace, "unequal_leaves": unequal,
+           "finite": all(bool(torch.isfinite(t.float()).all())
+                         for t in tk)}
+    if archetypes is not None:
+        live = cars_mask(st.sim)
+        row["truck_share_on_roads"] = float(
+            (st.sim.cars[:, fast_core.CAI][live] == 1.0).float().mean())
+        row["aidx_arrivals_of_archetype_1"] = int(
+            (st.sched.aidx == 1).sum())
+    emit(row)
+    if not eq_trace or unequal or not row["finite"]:
+        raise SmokeFailure(f"exact_parity {name}: the CUDA env differs "
+                           f"from the CPU env ({unequal})")
+    if row["global_tick_min"] <= chunk or dones < 1 \
+            or row["reset_counter"] != [2]:
+        raise SmokeFailure(f"exact_parity {name}: the run did not pass a "
+                           "window's ticks, reset a lane lazily and reset "
+                           "twice in full")
+    if archetypes is not None and not row["aidx_arrivals_of_archetype_1"]:
+        raise SmokeFailure(f"exact_parity {name}: no truck in the stream")
+    return row
+
+
+def exact_parity_phase():
+    """--exact on the card against the CPU: 3x3 of 100 m roads (lanes
+    overflow and reset lazily), 64 envs, three 12-step episodes that
+    run past one window's ticks; k = 1 and the two-archetype table."""
+    topo = GridRoad(3, 3, 100.0)
+    cfg = derive_spawn_rate(Config(trainer="random", history=1,
+                                   episode_secs=60,
+                                   road_length=100.0).derive(),
+                            topo.open_sides(0))
+    return [exact_parity_case("3x3_exact_k1", topo, cfg, None),
+            exact_parity_case("3x3_exact_k2", topo, cfg, TWO, seed=61)]
+
+
+def exact_qlearn_phase(card, n_envs):
+    """qlearn under --exact through run_alg at the JAX package's
+    widths on ``n_envs`` envs: 2 training episodes with a validation,
+    then a validate-mode restore of 2 episodes, each with the launch
+    counts set to 0 just before it; then a timed training episode.
+    Every ScheduleStream window (the host's share) is timed."""
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_exact_")
+    rows = {}
+    try:
+        with stream_timer() as calls:
+            cfg = qlearn_config(exact=True, num_envs=n_envs,
+                                total_episodes=2, validate_rate=2,
+                                save_rate=1000, summary_rate=1,
+                                logdir=logdir)
+            reset_w = 1 + cfg.warmup_lights + cfg.history - 1
+            rows_per_tick = exact_max_per_tick(
+                derive_spawn_rate(cfg, GridRoad(3, 3, 250.0).open_sides(0)))
+            window_cuda.launches.clear()
+            t0 = time.perf_counter()
+            ts = run_alg(cfg)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            train_windows = reset_w + 2 * cfg.episode_len \
+                + reset_w + cfg.episode_len
+            metrics = read_metrics(logdir)
+            losses = [m["value"] for m in metrics if m["name"] == "loss"]
+            val_r = [m["value"] for m in metrics
+                     if m["name"] == "avg_r_summary"]
+            rows["train"] = {
+                "phase": "exact_qlearn_train", "card": card,
+                "envs": n_envs, "episodes": ts.episode,
+                "sgd_steps": ts.train_steps,
+                "seconds_with_setup": train_s, "losses": losses,
+                "validation_rewards": val_r,
+                "global_tick_min": int(ts.env.sim.global_tick.min()),
+                "chunk_ticks": exact_chunk_ticks(cfg),
+                "rows_per_tick": rows_per_tick,
+                "launches": dict(window_cuda.launches),
+                "windows_run": train_windows,
+                "stream_windows": list(calls)}
+            emit(rows["train"])
+            check_launches("exact_qlearn_train", {"window": train_windows})
+            if not losses or not all(math.isfinite(x) for x in losses) \
+                    or not val_r or not math.isfinite(val_r[0]):
+                raise SmokeFailure("exact qlearn train: no loss or "
+                                   "validation, or a non-finite one")
+            n_train_calls = len(calls)
+            vcfg = qlearn_config(exact=True, num_envs=n_envs,
+                                 mode="validate", restore=True,
+                                 total_episodes=2, logdir=logdir)
+            window_cuda.launches.clear()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                lights, trips, unfinished = run_alg(vcfg)
+            torch.cuda.synchronize()
+            val_s = time.perf_counter() - t0
+            val_windows = reset_w + 2 * (reset_w + vcfg.episode_len)
+            reward = [float(x) for x in re.findall(r"Reward ([-0-9.e+]+)",
+                                                   out.getvalue())]
+            rows["validate"] = {
+                "phase": "exact_qlearn_validate", "card": card,
+                "envs": n_envs, "seconds_with_setup": val_s,
+                "rewards": reward, "trip_times": len(trips),
+                "light_times": len(lights),
+                "launches": dict(window_cuda.launches),
+                "windows_run": val_windows,
+                "stream_windows": list(calls[n_train_calls:])}
+            emit(rows["validate"])
+            check_launches("exact_qlearn_validate",
+                           {"window_telemetry": val_windows})
+            if len(reward) != 2 or not all(map(math.isfinite, reward)) \
+                    or not trips or not lights:
+                raise SmokeFailure("exact qlearn validate: no telemetry "
+                                   "or no finite rewards")
+            # steady training: one episode to fill the replay, one timed;
+            # the refresh before each is timed on its own
+            tcfg = qlearn_config(exact=True, num_envs=n_envs)
+            ctx, ts = qlearn.make_state(tcfg)
+            common.refresh_schedule(ctx.benv, ts)
+            ctx.fns.run_episode(ts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            common.refresh_schedule(ctx.benv, ts)
+            torch.cuda.synchronize()
+            refresh_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            stats = ctx.fns.run_episode(ts)
+            dt = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    steps = tcfg.episode_len
+    first = calls[0]
+    row = {"phase": "exact_qlearn_timing", "card": card, "envs": n_envs,
+           "envs_cut_from": None if n_envs == 1024 else 1024,
+           "agent_steps": steps, "agent_step_ms": dt / steps * 1e3,
+           "refresh_seconds": refresh_s,
+           "refresh_ticks_generated": calls[-1]["ticks_generated"],
+           "first_window_seconds": first["seconds"],
+           "first_window_ticks_generated": first["ticks_generated"],
+           "restore_fast_forward_seconds":
+               rows["validate"]["stream_windows"][1]["seconds"],
+           "stream_windows_run": len(calls),
+           "stream_seconds_total": sum(c["seconds"] for c in calls),
+           "episode_stats": dict(zip(("mean_reward", "loss", "max_q",
+                                      "gnorm"), stats))}
+    emit(row)
+    if not all(math.isfinite(x) for x in stats):
+        raise SmokeFailure("exact qlearn timing episode gave a non-finite "
+                           "stat")
+    return rows["train"], rows["validate"], row
+
+
+def conv_qlearn_phase(card, n_envs=2048):
+    """qlearn with ConvQNet (--conv_gru --occupancy_obs, history 20) on
+    the 5x5 grid through run_alg, the config-5 teacher's settings: 2
+    training episodes with a validation and a validate-mode restore,
+    each with the launch counts set to 0 just before it; a timed
+    training episode and the window's share of it; and the card's
+    ConvQNet forward against its CPU forward on the same weights and
+    the same observation stack, TF32 off (tolerance 1e-5 of the largest
+    |Q|)."""
+    kw = dict(conv_gru=True, occupancy_obs=True, grid_m=5, grid_n=5,
+              num_envs=n_envs)
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_conv_")
+    try:
+        cfg = qlearn_config(total_episodes=2, validate_rate=2,
+                            save_rate=1000, summary_rate=1, logdir=logdir,
+                            **kw)
+        reset_w = 1 + cfg.warmup_lights + cfg.history - 1
+        window_cuda.launches.clear()
+        t0 = time.perf_counter()
+        ts = run_alg(cfg)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_windows = reset_w + 2 * cfg.episode_len \
+            + reset_w + cfg.episode_len
+        metrics = read_metrics(logdir)
+        losses = [m["value"] for m in metrics if m["name"] == "loss"]
+        val_r = [m["value"] for m in metrics if m["name"] == "avg_r_summary"]
+        topo, dcfg, _ = build_env(cfg)
+        geom = window_cuda.spec_geometry(make_window_spec(topo, dcfg,
+                                                          True, 4))
+        train_row = {
+            "phase": "conv_qlearn_train", "card": card, "envs": n_envs,
+            "grid": "5x5", "net": type(ts.main).__name__,
+            "episodes": ts.episode, "sgd_steps": ts.train_steps,
+            "seconds_with_setup": train_s, "losses": losses,
+            "validation_rewards": val_r,
+            "envs_per_block": geom.envs_per_block,
+            "launches": dict(window_cuda.launches),
+            "windows_run": train_windows}
+        emit(train_row)
+        check_launches("conv_qlearn_train", {"window": train_windows})
+        if not losses or not all(math.isfinite(x) for x in losses) \
+                or not val_r or train_row["net"] != "ConvQNet":
+            raise SmokeFailure("conv qlearn train: no loss or validation, "
+                               "a non-finite loss, or no ConvQNet")
+        vcfg = qlearn_config(mode="validate", restore=True,
+                             total_episodes=1, logdir=logdir, **kw)
+        window_cuda.launches.clear()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            lights, trips, unfinished = run_alg(vcfg)
+        torch.cuda.synchronize()
+        val_windows = 2 * reset_w + vcfg.episode_len
+        reward = [float(x) for x in re.findall(r"Reward ([-0-9.e+]+)",
+                                               out.getvalue())]
+        val_row = {"phase": "conv_qlearn_validate", "card": card,
+                   "envs": n_envs, "rewards": reward,
+                   "trip_times": len(trips), "light_times": len(lights),
+                   "launches": dict(window_cuda.launches),
+                   "windows_run": val_windows}
+        emit(val_row)
+        check_launches("conv_qlearn_validate",
+                       {"window_telemetry": val_windows})
+        if len(reward) != 1 or not math.isfinite(reward[0]) or not trips:
+            raise SmokeFailure("conv qlearn validate: no telemetry or no "
+                               "finite reward")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+
+    tcfg = qlearn_config(**kw)
+    ctx, ts = qlearn.make_state(tcfg)
+    ctx.fns.run_episode(ts)
+    t0 = time.perf_counter()
+    stats = ctx.fns.run_episode(ts)
+    dt = time.perf_counter() - t0
+    step_ms = dt / tcfg.episode_len * 1e3
+    spec = make_window_spec(topo, dcfg, True, 4)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(9)
+    acts = torch.randint(0, 2, (16, topo.intersections, n_envs),
+                         dtype=torch.int32, device=DEVICE, generator=gen)
+    window_ms = time_windows(spec, ts.env.sim.clone(), acts)
+    stack = torch.movedim(ts.replay.last_stack(), 0, 1).contiguous()
+    with torch.no_grad():
+        q_card = ts.main(stack).cpu()
+        q_cpu = copy.deepcopy(ts.main).cpu()(stack.cpu())
+    err = float((q_card - q_cpu).abs().max())
+    scale = float(q_cpu.abs().max())
+    row = {"phase": "conv_qlearn_timing", "card": card, "envs": n_envs,
+           "agent_steps": tcfg.episode_len, "agent_step_ms": step_ms,
+           "env_steps_per_s": tcfg.episode_len * tcfg.light_iterations
+           * n_envs / dt,
+           "window_ms": window_ms, "window_share_of_step": window_ms
+           / step_ms,
+           "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                    "matmul": torch.backends.cuda.matmul.allow_tf32},
+           "forward_obs_shape": list(stack.shape),
+           "forward_max_abs_err": err, "forward_max_abs_q": scale,
+           "forward_rel_err": err / scale, "forward_tolerance_rel": 1e-5,
+           "episode_stats": dict(zip(("mean_reward", "loss", "max_q",
+                                      "gnorm"), stats))}
+    emit(row)
+    if not err <= 1e-5 * scale or q_card.shape != (n_envs, 25, 2):
+        raise SmokeFailure("conv qlearn: the card's ConvQNet forward "
+                           "differs from the CPU's beyond 1e-5")
+    if not all(math.isfinite(x) for x in stats):
+        raise SmokeFailure("conv qlearn timing episode gave a non-finite "
+                           "stat")
     return train_row, val_row, row
 
 
@@ -1180,6 +1537,9 @@ def main():
     ap.add_argument("--tune", action="store_true",
                     help="also sweep the launch geometry and profile the "
                     "kernel's phases")
+    ap.add_argument("--exact_envs", type=int, default=256,
+                    help="envs of the exact_qlearn phase (the JAX "
+                    "defaults' 1024 take minutes of host stream time)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1205,6 +1565,7 @@ def main():
 
     parity = parity_phase()
     env_parity_phase()
+    exact_parity_phase()
     topo = GridRoad(3, 3, 250.0)
     benv, state, launches, best = bench_phase(card)
     tparity = telemetry_parity_phase()
@@ -1214,6 +1575,8 @@ def main():
     greedy_rows, gtime, greedy_run = baselines_phase(card, {
         "qlearn_train_validation_rewards": train_row["validation_rewards"],
         "qlearn_validate_rewards": val_row["rewards"]})
+    exact_rows = exact_qlearn_phase(card, args.exact_envs)
+    conv_rows = conv_qlearn_phase(card)
     k2_state, k2_row = k2_phase(card)
     gbenv, grollout, genv, ggen = greedy_run
     bench_gen = torch.Generator(device=DEVICE)
@@ -1244,6 +1607,11 @@ def main():
           "kernel_share_of_qlearn_step":
               core["ms"] / qtime["agent_step_ms"],
           "greedy_agent_step_ms": gtime["agent_step_ms"],
+          "exact_qlearn_agent_step_ms": exact_rows[2]["agent_step_ms"],
+          "exact_envs": args.exact_envs,
+          "exact_refresh_seconds": exact_rows[2]["refresh_seconds"],
+          "conv_qlearn_agent_step_ms": conv_rows[2]["agent_step_ms"],
+          "conv_window_share_of_step": conv_rows[2]["window_share_of_step"],
           "ms_over_core": {r["variant"]: r["ms"] / core["ms"]
                            for r in (tel, decel, regular, k2)}})
 

@@ -28,7 +28,7 @@ def test_kernel_matches_reference_on_card():
     gen = torch.Generator()
     gen.manual_seed(0)
     sim = fast_core.reset(fast_core.init_state_compact(topo, 256, gen,
-                                                       "cuda"), None, gen)
+                                                       "cuda"))
     dk = sim_to_dict(sim)
     dp = {k: t.clone() for k, t in dk.items()}
     for _ in range(20):
@@ -54,7 +54,7 @@ def test_telemetry_kernel_matches_reference_on_card():
     gen = torch.Generator()
     gen.manual_seed(0)
     sim = fast_core.reset(fast_core.init_state_compact(topo, 256, gen,
-                                                       "cuda"), None, gen)
+                                                       "cuda"))
     dk = sim_to_dict(sim)
     dp = {k: t.clone() for k, t in dk.items()}
     nb = cfg.episode_ticks + 2
@@ -103,7 +103,7 @@ def _parity_on_card(topo, cfg, B, device_spawns, arch):
     gen = torch.Generator()
     gen.manual_seed(0)
     sim = fast_core.reset(fast_core.init_state_compact(
-        topo, B, gen, "cuda", rows=fast_core.n_car_rows(arch)), None, gen)
+        topo, B, gen, "cuda", rows=fast_core.n_car_rows(arch)))
     dk = sim_to_dict(sim)
     dp = {k: t.clone() for k, t in dk.items()}
     tel_k = tel_p = (None, None)
@@ -177,3 +177,76 @@ def test_kernel_geometries_match_reference_on_card(name):
                            _two_archetypes() if multi else None)
     if "ragged" in name:
         assert B % window_cuda.spec_geometry(spec).envs_per_block != 0
+
+
+@pytest.mark.gpu
+def test_exact_window_with_per_env_base_matches_reference_on_card():
+    """On a CUDA card: the core kernel in schedule mode, fed by an
+    ``--exact`` ScheduleStream window whose base is each env's own
+    global tick (all different, none 0), equals its plain version bit
+    for bit (3x3, 256 envs, 8 windows, lazy autoreset)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+    from traffic_env_tpu_torch.algorithms.common import exact_max_per_tick
+    from traffic_env_tpu_torch.envs.spawn import ScheduleStream
+    from traffic_env_tpu_torch.interop import schedule_from_arrays
+    from traffic_env_tpu_torch.ops import window_cuda
+    from traffic_env_tpu_torch.ops.window import build_spawn_rows
+    B = 256
+    topo = GridRoad(3, 3, 100.0)
+    cfg = derive_spawn_rate(Config().derive(), topo.open_sides(0))
+    ks = exact_max_per_tick(cfg)
+    spec = make_window_spec(topo, cfg, False, ks)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    sim = fast_core.reset(fast_core.init_state_compact(topo, B, gen,
+                                                       "cuda"))
+    gtick = 50 + np.arange(B) % 37 + np.arange(B) // 37
+    sim.global_tick.copy_(torch.as_tensor(gtick, dtype=torch.int32))
+    stream = ScheduleStream(topo, cfg, list(range(B)), 8 * spec.W + 16,
+                            ks)
+    sched = schedule_from_arrays(stream.window(gtick), "cuda")
+    assert len(set(sched.base.tolist())) > 1 and int(sched.base.min()) > 0
+    dk = sim_to_dict(sim)
+    dp = {k: t.clone() for k, t in dk.items()}
+    placed = 0
+    for _ in range(8):
+        rows, _ = build_spawn_rows(sched, dk["gtick"][0], spec.W, spec.Ks,
+                                   topo)
+        placed += int((rows >= 0).sum())
+        a = torch.randint(0, 2, (9, B), dtype=torch.int32, device="cuda")
+        ok = window_cuda.window(spec, dk, a, rows, sim.seed, True)
+        op = window_reference(spec, dp, a, rows, sim.seed, True)
+        for u, v in list(zip(ok, op)) + [(dk[k], dp[k]) for k in dk]:
+            assert torch.equal(u, v)
+    assert placed > 0
+
+
+@pytest.mark.gpu
+def test_convqnet_forward_on_card_matches_cpu():
+    """On a CUDA card, TF32 off: ConvQNet's forward (5x5, 20 frames of
+    13 channels, 2048 envs) within 1e-5 of the largest |Q| of its CPU
+    forward on the same weights and inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from traffic_env_tpu_torch.models.nets import ConvQNet
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        obs_size = 20 * 13 * 25
+        net = ConvQNet(5, 5, obs_size, generator=gen)
+        obs = torch.rand((2048, 20, 13 * 25), generator=gen) * 4
+        with torch.no_grad():
+            want = net(obs)
+            got = net.to("cuda")(obs.to("cuda")).cpu()
+        assert got.shape == (2048, 25, 2)
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

@@ -127,6 +127,9 @@ def run(cfg: Config, trainer: str | None = None):
     init_gen.manual_seed(int(cfg.seed))
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(cfg.seed) + 1)
+    # under --exact, init attaches the stream's first window and no
+    # episode refreshes it, as in the JAX package: past that window's
+    # ticks (~2 episodes) the schedule places no car
     state = {"env": benv.init(init_gen)}
 
     def one_episode():

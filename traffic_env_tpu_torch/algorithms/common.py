@@ -1,13 +1,15 @@
 """Shared training lifecycle (counterpart of
 ``traffic_env_tpu/algorithms/common.py``): the env for a config, the
-train/validate dispatch, the logdir (wipe and settings.json on a fresh
-run, restore on --restore), checkpoints, and validation bookkeeping
-with the validate-mode telemetry.
+``--exact`` arrival stream and its refresh, the train/validate
+dispatch, the logdir (wipe and settings.json on a fresh run, restore on
+--restore), checkpoints, and validation bookkeeping with the
+validate-mode telemetry.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import numpy as np
@@ -17,6 +19,8 @@ from ..config import (Config, derive_spawn_rate, entry_spec,
                       explicit_cli_flags)
 from ..envs.fast_core import cars_per_road
 from ..envs.rollout import BatchedEnv, make_batched_env
+from ..envs.spawn import ScheduleStream
+from ..interop import schedule_from_arrays
 from ..topology import GridRoad
 from ..utils.checkpoint import (Checkpointer, load_settings, remkdir,
                                 snapshot_settings)
@@ -35,37 +39,104 @@ def device_of(cfg: Config) -> torch.device:
                      "or cpu")
 
 
+def exact_chunk_ticks(cfg: Config) -> int:
+    """Ticks of one ``--exact`` schedule window: an ``episode_len``
+    rollout and every reset it can hold (a reset is 1 window, the
+    warm-up and the history prefill), with 25% headroom.  2,389 at the
+    qlearn defaults."""
+    W = cfg.light_iterations
+    reset_w = cfg.warmup_lights + max(cfg.history, 1) + 2
+    n_resets = (cfg.episode_len * W) // max(cfg.episode_ticks, W) + 2
+    chunk = (cfg.episode_len + n_resets * reset_w) * W
+    return chunk + chunk // 4 + 64
+
+
+def exact_max_per_tick(cfg: Config) -> int:
+    """Schedule rows a tick under ``--exact``: at least 8, and enough
+    that a Poisson burst past them has a chance below 1e-12 per env and
+    tick.  A tick's burst exceeds K only if K inter-arrival gaps in a
+    row round to 0, each with chance p0 = 1 - exp(-0.5 * cars_per_sec *
+    rate): 24 at the qlearn defaults (3x3, 1.44 cars/s), 35 on 5x5.
+    The JAX package takes 8, and its stream raises a burst of 10 within
+    the first window from 64 envs at the qlearn defaults.  A regular
+    spawner's burst is its fixed batch."""
+    per_tick = cfg.cars_per_sec * cfg.rate
+    if not cfg.poisson:
+        return max(8, math.ceil(per_tick))
+    p0 = 1.0 - math.exp(-0.5 * per_tick)
+    return max(8, math.ceil(math.log(1e-12) / math.log(p0)))
+
+
 def build_env(cfg: Config, n_envs: int | None = None
               ) -> tuple[GridRoad, Config, BatchedEnv]:
     """The batched traffic env for ``cfg`` on ``device_of(cfg)``: the
     grid with its entry mask, the spawn rate derived from its open
-    sides, device Poisson spawns."""
+    sides, and device Poisson spawns, or with ``--exact`` the
+    reference's per-env MT19937 arrival streams (seeds ``cfg.seed +
+    i``), served by a host ``ScheduleStream`` to the window's schedule
+    mode, ``exact_max_per_tick`` rows a tick."""
     if cfg.env_name == "cartpole":
         raise NotImplementedError("the CartPole fixture is not ported yet "
                                   "(ROADMAP queue 1, item 10)")
-    if cfg.exact:
-        raise NotImplementedError("--exact needs envs/spawn.py's "
-                                  "ScheduleStream, not ported yet "
-                                  "(ROADMAP queue 1, item 0)")
     if cfg.mesh_shape:
         raise NotImplementedError("--mesh_shape (multi-GPU) is not ported "
                                   "yet (ROADMAP queue 1, item 11)")
-    if cfg.conv_gru:
-        raise NotImplementedError("--conv_gru (ConvQNet) is not ported yet "
-                                  "(ROADMAP queue 1, item 6)")
     topo = GridRoad(cfg.grid_m, cfg.grid_n, cfg.road_length)
     spec = entry_spec(cfg)
     topo.set_entry_mask(spec)
     cfg = derive_spawn_rate(cfg, topo.open_sides(spec))
-    benv = make_batched_env(topo, cfg, n_envs or cfg.num_envs,
-                            device=device_of(cfg))
-    return topo, cfg, benv
+    n = n_envs or cfg.num_envs
+    if not cfg.exact:
+        return topo, cfg, make_batched_env(topo, cfg, n,
+                                           device=device_of(cfg))
+    k = exact_max_per_tick(cfg)
+    stream = ScheduleStream(topo, cfg, [cfg.seed + i for i in range(n)],
+                            exact_chunk_ticks(cfg), max_per_tick=k)
+    benv = make_batched_env(topo, cfg, n, on_device_spawns=False,
+                            max_spawns_per_tick=k, device=device_of(cfg))
+    return topo, cfg, attach_schedule_stream(benv, stream)
+
+
+def attach_schedule_stream(benv: BatchedEnv, stream: ScheduleStream
+                           ) -> BatchedEnv:
+    """``--exact`` wiring: ``init`` attaches the stream's first window
+    (base tick 0) to ``EnvState.sched``, so the first reset already
+    reads the stream; the stream rides on the env as ``sched_stream``
+    for ``refresh_env_schedule``."""
+
+    def init(generator: torch.Generator | None = None):
+        state = benv.init(generator)
+        sched = stream.window(np.zeros(stream.n_envs, np.int64))
+        return state.replace(sched=schedule_from_arrays(sched, benv.device))
+
+    return benv._replace(init=init, sched_stream=stream)
+
+
+def refresh_env_schedule(benv: BatchedEnv, env):
+    """Move the ``--exact`` window to cover the next host-loop segment
+    (one episode and its resets): one read of ``global_tick`` to the
+    host, one copy of the new window to the device.  Returns ``env``
+    with the new window (the same shapes); without --exact, ``env``."""
+    stream = benv.sched_stream
+    if stream is None:
+        return env
+    gt = env.sim.global_tick.cpu().numpy().astype(np.int64)
+    return env.replace(sched=schedule_from_arrays(stream.window(gt),
+                                                  benv.device))
+
+
+def refresh_schedule(benv: BatchedEnv, ts) -> None:
+    """``refresh_env_schedule`` on a train state's ``env``, in place;
+    called at the top of every train-loop iteration and before each
+    validation episode."""
+    ts.env = refresh_env_schedule(benv, ts.env)
 
 
 def handle_modes(cfg: Config, make_state: Callable, train: Callable,
                  validate: Callable):
     """Lifecycle dispatch.  ``make_state(cfg) -> (ctx, state)`` builds
-    the learner context and initial train state; ``train(cfg, ctx,
+    the learner context (with the env as ``ctx.benv``) and initial train
+    state (with the env state as ``state.env``); ``train(cfg, ctx,
     state, writer, ckpt)`` runs the train loop; ``validate(cfg, ctx,
     state) -> (reward, info, state)`` runs one greedy validation
     episode and returns the advanced state.  --render is not ported."""
@@ -84,15 +155,21 @@ def handle_modes(cfg: Config, make_state: Callable, train: Callable,
         remkdir(cfg.logdir)
         snapshot_settings(cfg, cfg.logdir)
     ctx, state = make_state(cfg)
+    benv = ctx.benv
     ckpt = Checkpointer(cfg.logdir)
     if cfg.restore:
         state = ckpt.restore(state)
+        if benv.sched_stream is not None:
+            # make_state read the stream from tick 0; a restarted one
+            # fast-forwards to the restored ticks on its first window
+            benv.sched_stream.restart()
         if cfg.mode == "validate":
             state = _ensure_trip_hist(cfg, state)
     if cfg.mode == "validate":
         box = [state]
 
         def _one():
+            refresh_schedule(benv, box[0])
             reward, info, box[0] = validate(cfg, ctx, box[0])
             return reward, info
 

@@ -1,8 +1,9 @@
 """Double DQN with on-device replay (counterpart of
 ``traffic_env_tpu/algorithms/qlearn.py``).
 
-A feed-forward residual Q net over a 20-frame history stack, a
-frame-per-step replay ring (``FrameReplay``), three nets main / chooser
+A feed-forward residual Q net over a 20-frame history stack (with
+``--conv_gru`` the grid-native ``ConvQNet``), a frame-per-step replay
+ring (``FrameReplay``), three nets main / chooser
 / target with the chooser copied from main after every train step and
 the target every ``target_update_rate`` train steps, the double-DQN
 target ``r - rho + gamma * nd * Q_target(s', argmax Q_chooser(s'))``,
@@ -15,6 +16,12 @@ Thousands of envs act in lockstep.  An episode is a Python loop over
 sample -> SGD), all on the device; the per-step statistics stay there
 and are fetched once per episode.  The replay counters are host
 integers, so the "replay is full" gate never waits on the device.
+Under ``--exact`` the arrival window is refreshed at the top of every
+episode and before every validation.
+
+The nets run in float32, as the JAX package states for every net:
+``make_state`` turns TF32 off for cuDNN convolutions and CUDA matmuls,
+which torch would otherwise run in TF32 on the card.
 """
 
 from __future__ import annotations
@@ -29,9 +36,9 @@ import torch
 from ..config import Config
 from ..envs.env import EnvState
 from ..envs.structs import SimState
-from ..models.nets import QNet
-from .common import (build_env, handle_modes, validate_telemetry,
-                     validation_hook)
+from ..models.nets import ConvQNet, QNet
+from .common import (build_env, handle_modes, refresh_schedule,
+                     validate_telemetry, validation_hook)
 from .exploration import exploration_param, softmax_decision
 from .replay import FrameReplay
 
@@ -42,9 +49,9 @@ CLIP_NORM = 10.0
 
 @dataclasses.dataclass
 class QLearnTS:
-    main: QNet
-    chooser: QNet
-    target: QNet
+    main: QNet | ConvQNet
+    chooser: QNet | ConvQNet
+    target: QNet | ConvQNet
     opt: torch.optim.Adam
     replay: FrameReplay
     env: EnvState           # batched env state
@@ -230,6 +237,13 @@ def make_fns(cfg: Config, benv) -> QLearnFns:
 
 
 def make_state(cfg: Config):
+    if cfg.conv_gru and cfg.single_agent:
+        # the 2^I single-agent head has no grid structure to share
+        raise ValueError("conv_gru qlearn requires factored "
+                         "per-intersection heads (no single_agent)")
+    # float32 nets, as in the JAX package: no TF32 on the card
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     topo, cfg, benv = build_env(cfg)
     fns = make_fns(cfg, benv)
     dev, B, I = benv.device, benv.n_envs, benv.n_intersections
@@ -244,7 +258,12 @@ def make_state(cfg: Config):
     reward_size = 1 if cfg.single_agent or cfg.squish_rewards else I
     init_gen = torch.Generator()
     init_gen.manual_seed(int(cfg.seed))
-    main = QNet(k * benv.obs_dim, heads, choices, generator=init_gen).to(dev)
+    if cfg.conv_gru:
+        main = ConvQNet(cfg.grid_m, cfg.grid_n, k * benv.obs_dim, choices,
+                        generator=init_gen).to(dev)
+    else:
+        main = QNet(k * benv.obs_dim, heads, choices,
+                    generator=init_gen).to(dev)
     replay = FrameReplay.create(cfg.buffer_size, B, k, benv.obs_dim, heads,
                                 reward_size, dev)
     # the hot loop acts on replay-ring stacks (last_stack): seed the ring
@@ -266,6 +285,7 @@ def train(cfg: Config, ctx: QLearnCtx, ts: QLearnTS, writer, ckpt):
     episode = ts.episode
     try:
         while cfg.total_episodes is None or episode < cfg.total_episodes:
+            refresh_schedule(ctx.benv, ts)
             mean_r, loss, max_q, gnorm = ctx.fns.run_episode(ts)
             episode = ts.episode
             if episode % cfg.summary_rate == 0:
@@ -281,6 +301,7 @@ def train(cfg: Config, ctx: QLearnCtx, ts: QLearnTS, writer, ckpt):
                         q = ts.main(stack[:256])
                     writer.histogram("scores", q.cpu().numpy(), episode)
             if episode % cfg.validate_rate == 0:
+                refresh_schedule(ctx.benv, ts)
                 rew = float(ctx.fns.greedy_episode(ts)[0])
                 validation_hook(cfg, ckpt, writer, best, episode, ts, rew)
             if episode % cfg.save_rate == 0:

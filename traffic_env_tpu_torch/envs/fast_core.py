@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import ARCHETYPES, RING
+from ..ops.philox import reset_bits
 from ..topology import GridRoad
 from .structs import SimState
 
@@ -30,7 +31,8 @@ def init_state_compact(topo: GridRoad, n_envs: int,
                        device="cuda", n_trip_bins: int = 0,
                        rows: int = 3) -> SimState:
     """A fresh, empty batched state (pre-reset).  Each env's Philox
-    ``seed`` is drawn from ``generator`` (on the generator's device).
+    ``seed`` is drawn from ``generator`` (on the generator's device); its
+    reset counter starts at 0.
     ``n_trip_bins > 0`` attaches the validate-mode trip-time histogram,
     i32 (n_trip_bins, n_envs).  ``rows`` is ``n_car_rows(archetypes)``:
     4 adds the archetype-index row."""
@@ -51,24 +53,23 @@ def init_state_compact(topo: GridRoad, n_envs: int,
         rewards=torch.zeros((I, B), dtype=torch.float32, device=dev),
         steps=zi(B), global_tick=zi(B),
         spawn_gap=torch.full((B,), -1, dtype=torch.int32, device=dev),
-        spawn_backlog=zi(B), seed=seed,
+        spawn_backlog=zi(B), seed=seed, resets=zi(B),
         done=torch.zeros((B,), dtype=torch.bool, device=dev),
         trip_hist=zi(n_trip_bins, B) if n_trip_bins else None)
 
 
-def reset(sim: SimState, phase=None,
-          generator: torch.Generator | None = None) -> SimState:
+def reset(sim: SimState, phase=None) -> SimState:
     """Empty every ring (slot 0 becomes the +inf fake leader), zero the
     episode counters and set the light phase: ``phase`` (I, B), or drawn
-    from ``generator``.  The arrival stream (gap, backlog, global tick),
-    the seed, ``detected`` and ``trip_hist`` persist (as the same
-    tensors).  Returns a new state."""
+    from the env's reset stream (row 0 of ``reset_bits``), which then
+    advances.  The arrival stream (gap, backlog, global tick), the seed,
+    ``detected`` and ``trip_hist`` persist (as the same tensors).
+    Returns a new state."""
     dev = sim.cars.device
     I, B = sim.phase.shape
     if phase is None:
-        gen_dev = generator.device if generator is not None else "cpu"
-        phase = torch.randint(0, 2, (I, B), dtype=torch.int32,
-                              generator=generator, device=gen_dev)
+        phase = reset_bits(sim.seed, sim.resets, 1, I)[0]
+        sim = sim.replace(resets=sim.resets + 1)
     phase = torch.as_tensor(phase, device=dev).to(torch.int32).clone()
     cars = sim.cars.clone()
     cars[:, :, 0] = 0.0

@@ -24,6 +24,7 @@ import torch
 
 from ..config import Config
 from ..constants import RING
+from ..ops.philox import reset_bits
 from ..ops.window import make_repeater_window
 from ..topology import GridRoad
 from . import fast_core
@@ -43,6 +44,9 @@ class BatchedEnv(NamedTuple):
     n_intersections: int
     obs_dim: int
     device: torch.device
+    # --exact: the host ScheduleStream behind EnvState.sched
+    # (algorithms/common.py:attach_schedule_stream), else None
+    sched_stream: object = None
 
 
 def _device(device) -> torch.device:
@@ -90,8 +94,6 @@ def make_batched_env(topo: GridRoad, cfg: Config, n_envs: int,
     rows = fast_core.n_car_rows(archetypes)
     rep = make_repeater_window(topo, cfg, autoreset=False, **kw)
     rep_lazy = make_repeater_window(topo, cfg, autoreset=True, **kw)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(cfg.seed))
     remi_tables = fast_core.remi_tables(topo, dev)
 
     def window_obs(sim, obs):
@@ -136,19 +138,19 @@ def make_batched_env(topo: GridRoad, cfg: Config, n_envs: int,
         ``actions[0]`` and ``warmup_lights`` more (unshaped), then the
         history prefill (shaped).  ``phase`` (I, B) and ``actions``
         (n, I, B) may be given; otherwise they are drawn from the env's
-        generator."""
+        reset stream (``SimState.resets``), which then advances, as the
+        JAX package splits them from the state's key."""
         n_actions = 1 + cfg.warmup_lights + (k_hist - 1 if k_hist > 1
                                              else 0)
         sched = state.sched if sched is None else sched
+        sim = state.sim
         if actions is None:
-            if phase is None:
-                phase = torch.randint(0, 2, (I, n_envs), dtype=torch.int32,
-                                      generator=gen, device=dev)
-            actions = torch.randint(0, 2, (n_actions, I, n_envs),
-                                    dtype=torch.int32, generator=gen,
-                                    device=dev)
+            draws = reset_bits(sim.seed, sim.resets, 1 + n_actions, I)
+            phase = draws[0] if phase is None else phase
+            actions = draws[1:]
+            sim = sim.replace(resets=sim.resets + 1)
         actions = torch.as_tensor(actions, device=dev).to(torch.int32)
-        sim = fast_core.reset(state.sim, phase, gen)
+        sim = fast_core.reset(sim, phase)
         sim, obs, _, _, _ = rep(sim, actions[0], sched)
         for a in actions[1:1 + cfg.warmup_lights]:
             sim, obs, _, _, _ = rep(sim, a, sched)

@@ -41,6 +41,10 @@ class SimState:
     # i32 (B,) Philox key of each env's device arrival stream.  The JAX
     # package carries a threefry key here instead (field ``key``).
     seed: torch.Tensor
+    # i32 (B,) full resets so far: the counter of the env's reset stream
+    # (light phase and warm-up actions, ``ops/philox.py:reset_bits``),
+    # which the JAX package splits from ``key``
+    resets: torch.Tensor
     done: torch.Tensor         # bool (B,) overflow flag
     # i32 (episode_ticks + 2, B) validate-mode trip-time histogram in
     # ticks, one column per env; None outside validate mode

@@ -2,13 +2,15 @@
 leaves, as numpy arrays, to the port's state and back.
 
 The JAX package holds a threefry ``key`` (2, B) per env where the port
-holds a Philox ``seed`` (B,); ``sim_from_arrays`` takes ``seed`` when
-given and otherwise the first key word's bits.  ``trip_hist`` (validate
-telemetry) is carried when present, and ``cars`` with all its rows (the
-archetype-index row 3 of a k > 1 state included).
+holds a Philox ``seed`` (B,) and a reset counter ``resets`` (B,);
+``sim_from_arrays`` takes ``seed`` when given and otherwise the first
+key word's bits, and ``resets`` when given and otherwise 0.
+``trip_hist`` (validate telemetry) is carried when present, and
+``cars`` with all its rows (the archetype-index row 3 of a k > 1 state
+included).
 ``schedule_from_arrays`` carries a schedule, its ``aidx`` included.
-``qnet_state_dict_from_flax`` turns a flax ``QNet`` param tree into the
-port's ``QNet`` state_dict.
+``qnet_state_dict_from_flax`` and ``convqnet_state_dict_from_flax`` turn
+a flax ``QNet`` or ``ConvQNet`` param tree into the port's state_dict.
 """
 
 from __future__ import annotations
@@ -43,6 +45,10 @@ def sim_from_arrays(arrays: dict, device="cuda") -> SimState:
         seed = np.asarray(arrays["key"])[0]
     out["seed"] = torch.tensor(seed.astype(np.uint32).view(np.int32),
                                device=dev)
+    resets = arrays.get("resets")
+    out["resets"] = torch.tensor(
+        np.zeros(seed.shape[-1:], np.int32) if resets is None
+        else np.asarray(resets, np.int32), device=dev)
     if arrays.get("trip_hist") is not None:
         out["trip_hist"] = torch.tensor(
             np.asarray(arrays["trip_hist"], np.int32), device=dev)
@@ -51,9 +57,10 @@ def sim_from_arrays(arrays: dict, device="cuda") -> SimState:
 
 def sim_to_arrays(sim: SimState) -> dict:
     """SimState -> dict of numpy arrays under the JAX package's field
-    names (plus ``seed``); ``trip_hist`` only when the state has one."""
-    keys = _FIELDS + ("seed",) + (("trip_hist",) if sim.trip_hist is not None
-                                  else ())
+    names (plus ``seed`` and ``resets``); ``trip_hist`` only when the
+    state has one."""
+    keys = _FIELDS + ("seed", "resets") + (
+        ("trip_hist",) if sim.trip_hist is not None else ())
     return {k: getattr(sim, k).detach().cpu().numpy() for k in keys}
 
 
@@ -79,5 +86,21 @@ def qnet_state_dict_from_flax(params) -> dict:
         out[f"dense.{i}.weight"] = torch.tensor(
             np.asarray(layer["kernel"], np.float32).T.copy())
         out[f"dense.{i}.bias"] = torch.tensor(
+            np.asarray(layer["bias"], np.float32))
+    return out
+
+
+def convqnet_state_dict_from_flax(params) -> dict:
+    """A flax ``ConvQNet`` param tree (``{"params": {"Conv_i": {"kernel",
+    "bias"}}}``, numpy leaves) -> the port's ``ConvQNet`` state_dict.
+    Flax ``Conv`` kernels are (kh, kw, in, out); ``nn.Conv2d.weight`` is
+    (out, in, kh, kw)."""
+    tree = params.get("params", params)
+    out = {}
+    for i in range(len(tree)):
+        layer = tree[f"Conv_{i}"]
+        out[f"conv.{i}.weight"] = torch.tensor(np.ascontiguousarray(
+            np.asarray(layer["kernel"], np.float32).transpose(3, 2, 0, 1)))
+        out[f"conv.{i}.bias"] = torch.tensor(
             np.asarray(layer["bias"], np.float32))
     return out

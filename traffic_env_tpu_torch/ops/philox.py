@@ -1,5 +1,5 @@
-"""Philox4x32-10 on int64 tensors, and the counter layout of the window
-kernel's device arrival stream.
+"""Philox4x32-10 on int64 tensors, the counter layout of the window
+kernel's device arrival stream, and the env's reset stream.
 
 Every random draw of the window is one Philox block keyed by
 ``(seed[b], b)`` -- the env's seed and its index in the batch -- with
@@ -12,6 +12,13 @@ The JAX package seeds the TPU's own generator once per block of envs
 from the block's largest global tick; the port's per-env streams give
 other random bits by design.  Device-spawn mode is held to the JAX
 package statistically (arrival rate), never bit for bit.
+
+A full reset's light phase and warm-up/prefill actions come from the
+same key with counter ``(resets, draw, RESET_WORD, 0)``: ``resets`` is
+the env's count of full resets (``SimState.resets``), and counter word
+2, which every window draw leaves 0, keeps the two streams disjoint.
+The JAX package splits these draws from ``key``; they are carried in
+the state for the same reason, so a checkpoint resumes them.
 """
 
 from __future__ import annotations
@@ -94,3 +101,27 @@ def draw_bits(seed: torch.Tensor, gtick: torch.Tensor,
 def uniform24(bits: torch.Tensor) -> torch.Tensor:
     """Top 24 bits of a 32-bit word as a float32 in [0, 1)."""
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+# counter word 2 of every reset draw (the window's draws leave it 0)
+RESET_WORD = 1
+
+
+def reset_bits(seed: torch.Tensor, resets: torch.Tensor, n_rows: int,
+               n_intersections: int) -> torch.Tensor:
+    """The 0/1 draws of one full reset: int32 (n_rows, I, B), row 0 the
+    light phase and rows 1.. the warm-up and prefill actions.  Draw
+    ``row * I + i`` of env ``b`` is bit 0 of word 0 of the Philox block
+    with counter ``(resets[b], row * I + i, RESET_WORD, 0)`` and key
+    ``(seed[b], b)``."""
+    B = seed.shape[-1]
+    dev = seed.device
+    env = torch.arange(B, device=dev, dtype=torch.int64)
+    k0 = seed.to(torch.int64) & MASK32
+    c0 = resets.to(torch.int64) & MASK32
+    c1 = torch.arange(n_rows * n_intersections, device=dev,
+                      dtype=torch.int64)[:, None]
+    c2 = torch.full((), RESET_WORD, dtype=torch.int64, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    w0 = philox4x32(c0[None, :], c1, c2, zero, k0[None, :], env[None, :])[0]
+    return (w0 & 1).to(torch.int32).reshape(n_rows, n_intersections, B)

@@ -176,6 +176,10 @@ def two_archetypes():
 
 
 TWO = two_archetypes()
+# the conv_qlearn path: the config-5 teacher's settings on 5x5
+CONV_ENVS = 2048
+CONV_KW = dict(conv_gru=True, occupancy_obs=True, grid_m=5, grid_n=5,
+               num_envs=CONV_ENVS)
 
 
 class SmokeFailure(Exception):
@@ -385,18 +389,26 @@ def variant_parity_phase():
 
 def geometry_parity_phase():
     """Launch geometries the 3x3 bench state does not reach: 5x5 (120
-    roads, fewer envs a block) and a batch that is no multiple of the
-    envs a block."""
+    roads, fewer envs a block), the telemetry variant at the envs and
+    config of conv_qlearn_validate, and a batch that is no multiple of
+    the envs a block."""
     t5 = GridRoad(5, 5, 250.0)
     c5 = bench_config(t5)
     decel = dict(decel_penalty=True, remi=False)
+    tc, cc, _ = build_env(qlearn_config(**CONV_KW))
     rows = [
         parity_case("5x5_device_autoreset_on", t5, c5, 30, True, True, 4,
                     seed=50, phase_name="geometry_parity"),
         parity_case("5x5_k2_decel_validate_schedule_autoreset_on", t5,
                     c5.replace(**decel), 30, False, True, 8, seed=51,
                     telemetry=True, archetypes=TWO,
-                    phase_name="geometry_parity")]
+                    phase_name="geometry_parity"),
+        parity_case(f"5x5_conv_validate_device_{CONV_ENVS}_autoreset_on",
+                    tc, cc, 30, True, True, 4, seed=53, telemetry=True,
+                    phase_name="geometry_parity", B=CONV_ENVS)]
+    if rows[-1]["exit_pops"] < 1:
+        raise SmokeFailure("no car left the map in the 5x5 conv "
+                           "validate case")
     topo = GridRoad(3, 3, 250.0)
     rows.append(parity_case("3x3_ragged_997_device_autoreset_on", topo,
                             bench_config(topo), 50, True, True, 4, seed=52,
@@ -773,21 +785,27 @@ def stream_timer():
         ScheduleStream.window = real
 
 
-def exact_parity_case(name, topo, cfg, archetypes, B=64, episodes=3,
+def exact_parity_case(name, topo, cfg, archetypes, B, episodes=3,
                       seed=60):
     """The CUDA env and the CPU env, each with its own ScheduleStream
     of the same seeds (--exact), from a reset drawn from the state's
     reset stream, on the same random actions: ``episodes`` episodes of
     lazy-autoreset steps with a schedule refresh at the top of each,
     then a second full reset.  obs, reward, done and every SimState
-    leaf (the reset counter included) must be bit-equal."""
+    leaf (the reset counter included) must be bit-equal; in validate
+    mode also the light times, and the trip-time histogram among the
+    leaves.  The card must have launched only the variant the spec
+    names."""
     I = topo.intersections
     k = exact_max_per_tick(cfg)
     chunk = exact_chunk_ticks(cfg)
     steps = cfg.episode_len
+    variant = make_window_spec(topo, cfg, False, k,
+                               archetypes=archetypes).variant
     acts = np.random.RandomState(seed).randint(
         2, size=(episodes * steps, I, B)).astype(np.int32)
     outs = {}
+    window_cuda.launches.clear()
     for dev in (DEVICE, "cpu"):
         stream = ScheduleStream(topo, cfg, [cfg.seed + i for i in range(B)],
                                 chunk, k, archetypes=archetypes)
@@ -802,18 +820,23 @@ def exact_parity_case(name, topo, cfg, archetypes, B=64, episodes=3,
             st = refresh_env_schedule(benv, st)
             bases.append(int(st.sched.base.min()))
             for t in range(steps):
-                st, obs, rew, done, _ = benv.step_autoreset_lazy(
+                st, obs, rew, done, info = benv.step_autoreset_lazy(
                     st, torch.as_tensor(acts[e * steps + t], device=dev))
                 trace += [obs.cpu(), rew.cpu(), done.cpu()]
+                if info is not None:
+                    trace.append(info["light_times"].cpu())
                 dones += int(done.sum())
         st, obs = benv.reset(st)
         trace.append(obs.cpu())
         outs[dev] = (trace, sim_to_arrays(st.sim), dones, bases, st)
+    torch.cuda.synchronize()
+    launches = dict(window_cuda.launches)
     (tk, sk, dones, bases, st), (tp, sp, _, _, _) = outs[DEVICE], outs["cpu"]
     eq_trace = len(tk) == len(tp) and all(torch.equal(a, b)
                                           for a, b in zip(tk, tp))
     unequal = sorted(n for n in sp if not np.array_equal(sk[n], sp[n]))
     row = {"phase": "exact_parity", "case": name, "envs": B,
+           "variant": variant, "launches": launches,
            "episodes": episodes, "agent_steps": episodes * steps,
            "rows_per_tick": k, "chunk_ticks": chunk,
            "refresh_bases_min": bases,
@@ -822,6 +845,7 @@ def exact_parity_case(name, topo, cfg, archetypes, B=64, episodes=3,
            "reset_counter": sorted(set(sk["resets"].tolist())),
            "max_arrivals_per_tick_in_window": int(st.sched.counts.max()),
            "obs_rew_done_equal": eq_trace, "unequal_leaves": unequal,
+           "leaves_compared": sorted(sp),
            "finite": all(bool(torch.isfinite(t.float()).all())
                          for t in tk)}
     if archetypes is not None:
@@ -830,10 +854,17 @@ def exact_parity_case(name, topo, cfg, archetypes, B=64, episodes=3,
             (st.sim.cars[:, fast_core.CAI][live] == 1.0).float().mean())
         row["aidx_arrivals_of_archetype_1"] = int(
             (st.sched.aidx == 1).sum())
+    if cfg.mode == "validate":
+        row["exit_pops"] = int(sk["trip_hist"].sum())
     emit(row)
     if not eq_trace or unequal or not row["finite"]:
         raise SmokeFailure(f"exact_parity {name}: the CUDA env differs "
                            f"from the CPU env ({unequal})")
+    if list(launches) != [variant]:
+        raise SmokeFailure(f"exact_parity {name}: launches {launches}, "
+                           f"only {variant} expected")
+    if cfg.mode == "validate" and not row["exit_pops"]:
+        raise SmokeFailure(f"exact_parity {name}: no trip time recorded")
     if row["global_tick_min"] <= chunk or dones < 1 \
             or row["reset_counter"] != [2]:
         raise SmokeFailure(f"exact_parity {name}: the run did not pass a "
@@ -844,17 +875,28 @@ def exact_parity_case(name, topo, cfg, archetypes, B=64, episodes=3,
     return row
 
 
-def exact_parity_phase():
-    """--exact on the card against the CPU: 3x3 of 100 m roads (lanes
-    overflow and reset lazily), 64 envs, three 12-step episodes that
-    run past one window's ticks; k = 1 and the two-archetype table."""
+def exact_parity_phase(n_envs):
+    """--exact on the card against the CPU at the envs of the
+    exact_qlearn phase: 3x3 of 100 m roads (lanes overflow and reset
+    lazily; the rows a tick are the qlearn defaults'), three 12-step
+    episodes that run past one window's ticks; the core and telemetry
+    (validate) variants at k = 1, and the two-archetype table."""
     topo = GridRoad(3, 3, 100.0)
     cfg = derive_spawn_rate(Config(trainer="random", history=1,
                                    episode_secs=60,
                                    road_length=100.0).derive(),
                             topo.open_sides(0))
-    return [exact_parity_case("3x3_exact_k1", topo, cfg, None),
-            exact_parity_case("3x3_exact_k2", topo, cfg, TWO, seed=61)]
+    rows_qlearn = exact_max_per_tick(derive_spawn_rate(
+        qlearn_config(), GridRoad(3, 3, 250.0).open_sides(0)))
+    if exact_max_per_tick(cfg) != rows_qlearn:
+        raise SmokeFailure("exact_parity: rows a tick differ from the "
+                           "qlearn path's")
+    return [exact_parity_case("3x3_exact_k1", topo, cfg, None, n_envs),
+            exact_parity_case("3x3_exact_validate", topo,
+                              cfg.replace(mode="validate"), None, n_envs,
+                              seed=62),
+            exact_parity_case("3x3_exact_k2", topo, cfg, TWO, n_envs,
+                              seed=61)]
 
 
 def exact_qlearn_phase(card, n_envs):
@@ -970,7 +1012,7 @@ def exact_qlearn_phase(card, n_envs):
     return rows["train"], rows["validate"], row
 
 
-def conv_qlearn_phase(card, n_envs=2048):
+def conv_qlearn_phase(card):
     """qlearn with ConvQNet (--conv_gru --occupancy_obs, history 20) on
     the 5x5 grid through run_alg, the config-5 teacher's settings: 2
     training episodes with a validation and a validate-mode restore,
@@ -979,8 +1021,7 @@ def conv_qlearn_phase(card, n_envs=2048):
     ConvQNet forward against its CPU forward on the same weights and
     the same observation stack, TF32 off (tolerance 1e-5 of the largest
     |Q|)."""
-    kw = dict(conv_gru=True, occupancy_obs=True, grid_m=5, grid_n=5,
-              num_envs=n_envs)
+    kw, n_envs = CONV_KW, CONV_ENVS
     logdir = tempfile.mkdtemp(prefix="chip_smoke_conv_")
     try:
         cfg = qlearn_config(total_episodes=2, validate_rate=2,
@@ -1565,7 +1606,7 @@ def main():
 
     parity = parity_phase()
     env_parity_phase()
-    exact_parity_phase()
+    exact_parity_phase(args.exact_envs)
     topo = GridRoad(3, 3, 250.0)
     benv, state, launches, best = bench_phase(card)
     tparity = telemetry_parity_phase()
@@ -1623,7 +1664,8 @@ def main():
                                if r["variant"] == "window"], core),
         kernel_entry("window_telemetry", REPLACES + " (emit_trips=True, "
                      ":244-250, :559-578, :853-862)", "qlearn_validate",
-                     tparity, tel),
+                     tparity + [r for r in gparity
+                                if r["variant"] == "window_telemetry"], tel),
         kernel_entry("window_decel", REPLACES + " (decel_penalty, "
                      ":521-537)", "greedy_decel", by("decel"), decel),
         kernel_entry("window_regular", REPLACES + " (poisson=False, "

@@ -180,8 +180,11 @@ def test_kernel_geometries_match_reference_on_card(name):
 
 
 @pytest.mark.gpu
-def test_exact_window_with_per_env_base_matches_reference_on_card():
-    """On a CUDA card: the core kernel in schedule mode, fed by an
+@pytest.mark.parametrize("telemetry", [False, True])
+def test_exact_window_with_per_env_base_matches_reference_on_card(
+        telemetry):
+    """On a CUDA card: the core kernel, and the telemetry variant with
+    its light times and trip-time histogram, in schedule mode, fed by an
     ``--exact`` ScheduleStream window whose base is each env's own
     global tick (all different, none 0), equals its plain version bit
     for bit (3x3, 256 envs, 8 windows, lazy autoreset)."""
@@ -195,7 +198,9 @@ def test_exact_window_with_per_env_base_matches_reference_on_card():
     from traffic_env_tpu_torch.ops.window import build_spawn_rows
     B = 256
     topo = GridRoad(3, 3, 100.0)
-    cfg = derive_spawn_rate(Config().derive(), topo.open_sides(0))
+    cfg = derive_spawn_rate(
+        Config(mode="validate" if telemetry else "train").derive(),
+        topo.open_sides(0))
     ks = exact_max_per_tick(cfg)
     spec = make_window_spec(topo, cfg, False, ks)
     gen = torch.Generator()
@@ -210,17 +215,25 @@ def test_exact_window_with_per_env_base_matches_reference_on_card():
     assert len(set(sched.base.tolist())) > 1 and int(sched.base.min()) > 0
     dk = sim_to_dict(sim)
     dp = {k: t.clone() for k, t in dk.items()}
+    tel_k = tel_p = ()
+    if telemetry:
+        tel_k = (torch.zeros((cfg.episode_ticks + 2, B), dtype=torch.int32,
+                             device="cuda"),
+                 torch.empty((9, B), device="cuda"))
+        tel_p = tuple(t.clone() for t in tel_k)
     placed = 0
     for _ in range(8):
         rows, _ = build_spawn_rows(sched, dk["gtick"][0], spec.W, spec.Ks,
                                    topo)
         placed += int((rows >= 0).sum())
         a = torch.randint(0, 2, (9, B), dtype=torch.int32, device="cuda")
-        ok = window_cuda.window(spec, dk, a, rows, sim.seed, True)
-        op = window_reference(spec, dp, a, rows, sim.seed, True)
-        for u, v in list(zip(ok, op)) + [(dk[k], dp[k]) for k in dk]:
+        ok = window_cuda.window(spec, dk, a, rows, sim.seed, True, *tel_k)
+        op = window_reference(spec, dp, a, rows, sim.seed, True, *tel_p)
+        for u, v in list(zip(ok, op)) + [(dk[k], dp[k]) for k in dk] + \
+                list(zip(tel_k, tel_p)):
             assert torch.equal(u, v)
     assert placed > 0
+    assert spec.variant == ("window_telemetry" if telemetry else "window")
 
 
 @pytest.mark.gpu

@@ -160,8 +160,8 @@ def handle_modes(cfg: Config, make_state: Callable, train: Callable,
     if cfg.restore:
         state = ckpt.restore(state)
         if benv.sched_stream is not None:
-            # make_state read the stream from tick 0; a restarted one
-            # fast-forwards to the restored ticks on its first window
+            # make_state served the window at tick 0; after restart the
+            # next window may jump on to the restored ticks
             benv.sched_stream.restart()
         if cfg.mode == "validate":
             state = _ensure_trip_hist(cfg, state)

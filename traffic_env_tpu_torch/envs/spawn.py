@@ -40,33 +40,42 @@ def _spawner(cfg: Config, seed, archetypes):
                archetypes)
 
 
+def _ticks(spawner, topo: GridRoad) -> list[tuple[int, int]]:
+    """One tick of a spawner's arrivals as (entry road, archetype)."""
+    return [(road, ai) for road, _, ai in spawner.tick(topo.entrypoints)]
+
+
+def _lay_out(rows, i: int, counts, roads, aidx) -> None:
+    """Writes env ``i``'s arrival rows, one list of (road, archetype) a
+    tick, into the schedule arrays (T, [K,] B)."""
+    for t, row in enumerate(rows):
+        counts[t, i] = len(row)
+        roads[t, :len(row), i] = [r for r, _ in row]
+        if aidx is not None:
+            aidx[t, :len(row), i] = [a for _, a in row]
+
+
 def build_schedule(topo: GridRoad, cfg: Config, seed, ticks: int,
                    max_per_tick: int | None = None,
                    archetypes: np.ndarray | None = None) -> HostSchedule:
-    """``ticks`` worth of one env's arrival stream.  With a k > 1
+    """``ticks`` worth of one env's arrival stream, as wide as its
+    largest burst when ``max_per_tick`` is None.  With a k > 1
     ``archetypes`` table each car's ``randint`` draw is kept in
     ``aidx``."""
     spawner = _spawner(cfg, seed, archetypes)
-    multi = spawner.arch.shape[0] > 1
-    counts = np.zeros(ticks, dtype=np.int32)
-    rows: list[list[tuple[int, int]]] = []
-    for t in range(ticks):
-        arrivals = spawner.tick(topo.entrypoints)
-        counts[t] = len(arrivals)
-        rows.append([(road, ai) for road, _, ai in arrivals])
-    k = max(int(counts.max()), 1)
+    rows = [_ticks(spawner, topo) for _ in range(ticks)]
+    k = max(max(map(len, rows), default=0), 1)
     if max_per_tick is not None:
         assert k <= max_per_tick, (
             f"schedule burst {k} exceeds max_per_tick={max_per_tick}")
         k = max_per_tick
-    roads = np.zeros((ticks, k), dtype=np.int32)
-    aidx = np.zeros((ticks, k), dtype=np.int32) if multi else None
-    for t, row in enumerate(rows):
-        roads[t, :len(row)] = [r for r, _ in row]
-        if multi:
-            aidx[t, :len(row)] = [a for _, a in row]
-    return HostSchedule(counts=counts, roads=roads, base=np.int32(0),
-                        aidx=aidx)
+    counts = np.zeros((ticks, 1), np.int32)
+    roads = np.zeros((ticks, k, 1), np.int32)
+    aidx = roads.copy() if spawner.arch.shape[0] > 1 else None
+    _lay_out(rows, 0, counts, roads, aidx)
+    return HostSchedule(counts=counts[:, 0], roads=roads[..., 0],
+                        base=np.int32(0),
+                        aidx=None if aidx is None else aidx[..., 0])
 
 
 def build_batched_schedule(topo: GridRoad, cfg: Config, seeds,
@@ -74,15 +83,10 @@ def build_batched_schedule(topo: GridRoad, cfg: Config, seeds,
                            archetypes: np.ndarray | None = None
                            ) -> HostSchedule:
     """Independent schedules for a batch of envs, stacked on a trailing
-    batch axis."""
-    scheds = [build_schedule(topo, cfg, s, ticks, max_per_tick, archetypes)
-              for s in seeds]
-    return HostSchedule(
-        counts=np.stack([s.counts for s in scheds], axis=-1),
-        roads=np.stack([s.roads for s in scheds], axis=-1),
-        base=np.zeros(len(scheds), np.int32),
-        aidx=(None if scheds[0].aidx is None else
-              np.stack([s.aidx for s in scheds], axis=-1)))
+    batch axis: the first window of a :class:`ScheduleStream`."""
+    seeds = list(seeds)
+    return ScheduleStream(topo, cfg, seeds, ticks, max_per_tick,
+                          archetypes).window(np.zeros(len(seeds)))
 
 
 class ScheduleStream:
@@ -105,17 +109,7 @@ class ScheduleStream:
         self.topo = topo
         self.chunk = int(chunk_ticks)
         self.k = int(max_per_tick)
-        self._spawners = lambda: [_spawner(cfg, s, archetypes)
-                                  for s in seeds]
-        self.restart()
-
-    def restart(self) -> None:
-        """Back to tick 0 with fresh spawners and no window served, so
-        that the next window may start at any tick (a restored run's).
-        The JAX package has no such step: there a restore reads on from
-        the stream that served tick 0, and raises once the restored
-        ticks lie more than a chunk past it."""
-        self._sp = self._spawners()
+        self._sp = [_spawner(cfg, s, archetypes) for s in seeds]
         self.multi = self._sp[0].arch.shape[0] > 1 if self._sp else False
         n = len(self._sp)
         self._next = np.zeros(n, np.int64)   # first ungenerated tick
@@ -124,6 +118,15 @@ class ScheduleStream:
         # the overrun check applies once a window has been served; the
         # first request may fast-forward arbitrarily (restore)
         self._served = np.zeros(n, bool)
+
+    def restart(self) -> None:
+        """Lets the next window start at any tick not yet consumed (a
+        restored run's): the buffered ticks are a prefix of the same
+        stream, so the window pops them and fast-forwards from there.
+        The JAX package has no such step: there a restore reads on from
+        the stream that served tick 0, and raises once the restored
+        ticks lie more than a chunk past it."""
+        self._served[:] = False
 
     @property
     def n_envs(self) -> int:
@@ -166,19 +169,15 @@ class ScheduleStream:
                     self._next[i] += 1
                 self._base[i] += 1
             while self._next[i] < g + self.chunk:
-                arrivals = self._sp[i].tick(self.topo.entrypoints)
-                if len(arrivals) > self.k:
+                row = _ticks(self._sp[i], self.topo)
+                if len(row) > self.k:
                     raise AssertionError(
-                        f"schedule burst {len(arrivals)} exceeds "
+                        f"schedule burst {len(row)} exceeds "
                         f"max_per_tick={self.k}")
-                self._buf[i].append([(road, ai)
-                                     for road, _, ai in arrivals])
+                self._buf[i].append(row)
                 self._next[i] += 1
             self._served[i] = True
-            for t, row in enumerate(islice(self._buf[i], self.chunk)):
-                counts[t, i] = len(row)
-                roads[t, :len(row), i] = [r for r, _ in row]
-                if aidx is not None:
-                    aidx[t, :len(row), i] = [a for _, a in row]
+            _lay_out(islice(self._buf[i], self.chunk), i, counts, roads,
+                     aidx)
         return HostSchedule(counts=counts, roads=roads,
                             base=gticks.astype(np.int32), aidx=aidx)

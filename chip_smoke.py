@@ -53,6 +53,21 @@ Phases, one JSON line each:
    launches == windows; a timed episode and the window's share of it;
    the card's ConvQNet forward against the CPU's on the same weights and
    observation stack, TF32 off, within 1e-5 of the largest |Q|.
+   a3c: the a3c learner through ``run_alg`` with the qlearn-teacher
+   distillation flags (--occupancy_obs --history=20 --bc_expert=qlearn,
+   the converted 3x3 teacher, anchor 1.0, SIL, finetune_lr 1e-4, no
+   entropy term; bc_episodes cut from 700 to 1) at 3x3, 4096 envs,
+   A3CNet 160, windows of 30 agent steps: 2 training episodes (BC, then
+   past it) with a validation, then a validate-mode restore; launches
+   == windows by variant, finite losses.  a3c_conv: the same with
+   ConvGRUA3CNet (32 channels) on 5x5 at 2048 envs and the ConvQNet
+   teacher.  a3c_timing / a3c_conv_timing: on a fresh state of each,
+   the BC window's actions against the card teacher's argmax on the
+   recorded obs (equal), the ms of a rollout window and of its update
+   (BPTT replay and Adam step), a timed training episode (agent-step
+   ms, env-steps/s), the window kernel's share of the step, and the
+   card's forward against the CPU's (within 1e-5 of the largest
+   |score|).
 8. variant_parity: the decel_penalty, regular-spawn and k > 1
    (two-archetype) variants against their plain version on the card,
    3x3 grid, 4096 envs, 50 windows, autoreset on: decel with schedule
@@ -123,13 +138,14 @@ import numpy as np
 import torch
 
 from traffic_env_tpu_torch import constants as C
-from traffic_env_tpu_torch.algorithms import (baselines, common, qlearn,
-                                              run_alg)
+from traffic_env_tpu_torch.algorithms import (a3c, baselines, common,
+                                              qlearn, run_alg)
 from traffic_env_tpu_torch.algorithms.common import (attach_schedule_stream,
                                                      build_env,
                                                      exact_chunk_ticks,
                                                      exact_max_per_tick,
                                                      refresh_env_schedule)
+from traffic_env_tpu_torch.algorithms.exploration import anneal
 from traffic_env_tpu_torch.config import Config, derive_spawn_rate
 from traffic_env_tpu_torch.constants import RING
 from traffic_env_tpu_torch.envs import fast_core
@@ -138,7 +154,7 @@ from traffic_env_tpu_torch.envs.rollout import (bind_schedule,
                                                 random_rollout)
 from traffic_env_tpu_torch.envs.spawn import ScheduleStream
 from traffic_env_tpu_torch.envs.structs import SpawnSchedule
-from traffic_env_tpu_torch.interop import sim_to_arrays
+from traffic_env_tpu_torch.interop import load_teacher, sim_to_arrays
 from traffic_env_tpu_torch.ops import _build, window_cuda
 from traffic_env_tpu_torch.ops.window import (make_window_spec, sim_to_dict,
                                               window_reference)
@@ -180,6 +196,21 @@ TWO = two_archetypes()
 CONV_ENVS = 2048
 CONV_KW = dict(conv_gru=True, occupancy_obs=True, grid_m=5, grid_n=5,
                num_envs=CONV_ENVS)
+# the a3c paths: the qlearn-teacher distillation flags of the JAX
+# package's 3x3 run (BASELINE.md:55), with bc_episodes cut from 700 to
+# 1 so that the second training episode runs past the BC phase (the
+# anchor, sampled actions, finetune_lr); and the conv-GRU policy on 5x5
+# with the ConvQNet teacher (BASELINE.md:186)
+TEACHERS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "traffic_env_tpu_torch", "teachers")
+A3C_KW = dict(occupancy_obs=True, history=20, bc_expert="qlearn",
+              bc_expert_ckpt=os.path.join(TEACHERS, "qlearn_3x3_occ.npz"),
+              bc_episodes=1, finetune_lr=1e-4, bc_anchor=1.0, sil=True,
+              entropy_coef=0.0)
+A3C_CONV_KW = dict(A3C_KW, conv_gru=True, grid_m=5, grid_n=5,
+                   num_envs=CONV_ENVS,
+                   bc_expert_ckpt=os.path.join(TEACHERS,
+                                               "qlearn_5x5_conv_occ.npz"))
 
 
 class SmokeFailure(Exception):
@@ -1122,6 +1153,176 @@ def conv_qlearn_phase(card):
     return train_row, val_row, row
 
 
+def a3c_config(**kw):
+    """a3c at the JAX package's widths (A3CNet 160, windows of 30 agent
+    steps, 120 steps an episode) on 4096 envs unless ``num_envs`` is
+    given, with the distillation flags of ``A3C_KW`` or ``kw``."""
+    return Config(**{"trainer": "a3c", "num_envs": N_ENVS,
+                     "platform": "cpu" if DEVICE == "cpu" else "",
+                     **A3C_KW, **kw}).derive()
+
+
+def a3c_phase(card, name, kw):
+    """a3c through run_alg: 2 training episodes (the first in the BC
+    phase, the second past it) with a validation, then a validate-mode
+    restore, each with the launch counts set to 0 just before it."""
+    logdir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    try:
+        cfg = a3c_config(total_episodes=2, validate_rate=2, save_rate=1000,
+                         summary_rate=1, logdir=logdir, **kw)
+        reset_w = 1 + cfg.warmup_lights + cfg.history - 1
+        window_cuda.launches.clear()
+        t0 = time.perf_counter()
+        ts = run_alg(cfg)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_windows = reset_w + 2 * cfg.episode_len \
+            + reset_w + cfg.episode_len
+        metrics = read_metrics(logdir)
+        pick = lambda k: [m["value"] for m in metrics if m["name"] == k]
+        losses, val_r = pick("loss"), pick("avg_r_summary")
+        net = type(ts.net).__name__
+        train_row = {
+            "phase": f"{name}_train", "card": card, "envs": cfg.num_envs,
+            "grid": f"{cfg.grid_m}x{cfg.grid_n}", "net": net,
+            "teacher": os.path.basename(cfg.bc_expert_ckpt),
+            "episodes": ts.episode, "agent_steps": ts.step,
+            "seconds_with_setup": train_s, "losses": losses,
+            "policy_losses": pick("policy_loss"),
+            "value_losses": pick("value_loss"),
+            "mean_rewards": pick("mean_reward"),
+            "validation_rewards": val_r,
+            "launches": dict(window_cuda.launches),
+            "windows_run": train_windows}
+        emit(train_row)
+        check_launches(f"{name}_train", {"window": train_windows})
+        want_net = "ConvGRUA3CNet" if cfg.conv_gru else "A3CNet"
+        if len(losses) != 2 or not all(math.isfinite(x) for x in losses) \
+                or not val_r or net != want_net \
+                or ts.step != 2 * cfg.episode_len:
+            raise SmokeFailure(f"{name} train: no loss or validation, a "
+                               f"non-finite loss, or no {want_net}")
+        vcfg = a3c_config(mode="validate", restore=True, total_episodes=1,
+                          logdir=logdir, **kw)
+        window_cuda.launches.clear()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            lights, trips, unfinished = run_alg(vcfg)
+        torch.cuda.synchronize()
+        val_windows = 2 * reset_w + vcfg.episode_len
+        reward = [float(x) for x in re.findall(r"Reward ([-0-9.e+]+)",
+                                               out.getvalue())]
+        val_row = {"phase": f"{name}_validate", "card": card,
+                   "envs": vcfg.num_envs, "rewards": reward,
+                   "trip_times": len(trips), "light_times": len(lights),
+                   "unfinished_cars_per_env": unfinished,
+                   "launches": dict(window_cuda.launches),
+                   "windows_run": val_windows}
+        emit(val_row)
+        check_launches(f"{name}_validate", {"window_telemetry": val_windows})
+        if len(reward) != 1 or not math.isfinite(reward[0]) or not trips:
+            raise SmokeFailure(f"{name} validate: no telemetry or no finite "
+                               "reward")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    return train_row, val_row
+
+
+def a3c_timing_phase(card, name, kw):
+    """On a fresh a3c state of the phase's config: the BC window's
+    actions against the card teacher's argmax on the recorded obs
+    (equal); ms of a 30-step rollout and of its update (the BPTT replay
+    of the window, clipping and the Adam step; CUDA events); a timed
+    training episode past the BC phase (agent-step ms, env-steps/s);
+    the window kernel's ms on the path's state and its share of the
+    step; and the card's forward against the CPU's on the same weights,
+    obs and carry (512 envs, TF32 off; tolerance 1e-5 of the largest
+    |score|)."""
+    cfg = a3c_config(**kw)
+    ctx, ts = a3c.make_state(cfg)
+    fns, B = ctx.fns, cfg.num_envs
+    sync = torch.cuda.synchronize
+    eps = anneal(cfg.start_eps, cfg.end_eps, cfg.annealing_episodes, 0)
+    carry0 = ts.gru
+    seq = fns.rollout(ts, eps, True)
+    teacher = load_teacher(cfg.bc_expert_ckpt, cfg, DEVICE)
+    with torch.no_grad():
+        want = torch.stack([torch.argmax(teacher(o), -1) for o in seq["obs"]])
+    bc_equal = torch.equal(seq["act"], want.to(torch.float32))
+    fns.update(ts, seq, carry0, True)
+    # the rest of the BC episode, then a timed window and episode past it
+    for _ in range(cfg.episode_len // cfg.batch_size - 1):
+        fns.run_window(ts)
+    ts.episode, ts.gru = 1, torch.zeros_like(ts.gru)
+    sync()
+    carry0 = ts.gru
+    t0 = time.perf_counter()
+    seq = fns.rollout(ts, eps, False)
+    sync()
+    rollout_ms = (time.perf_counter() - t0) * 1e3
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    stats = fns.update(ts, seq, carry0, False)
+    e1.record()
+    sync()
+    update_ms = e0.elapsed_time(e1)
+    for _ in range(cfg.episode_len // cfg.batch_size - 1):
+        fns.run_window(ts)
+    ts.episode, ts.gru = 2, torch.zeros_like(ts.gru)
+    t0 = time.perf_counter()
+    ep_stats = fns.run_episode(ts)          # ends with a host fetch
+    dt = time.perf_counter() - t0
+    step_ms = dt / cfg.episode_len * 1e3
+    topo, dcfg, _ = build_env(cfg.replace(mode="train"))
+    spec = make_window_spec(topo, dcfg, True, 4)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(9)
+    acts = torch.randint(0, 2, (16, topo.intersections, B),
+                         dtype=torch.int32, device=DEVICE, generator=gen)
+    window_ms = time_windows(spec, ts.env.sim.clone(), acts)
+    nb = min(B, 512)
+    obs_bf = torch.movedim(ts.obs, -1, 0).reshape(B, -1)[:nb, None]
+    carry = (torch.rand(ts.gru[:nb].shape, generator=gen,
+                        device=DEVICE) - 0.5)
+    with torch.no_grad():
+        card_out = [x.cpu() for x in ts.net(obs_bf, carry)]
+        cpu_out = copy.deepcopy(ts.net).cpu()(obs_bf.cpu(), carry.cpu())
+    err = max(float((a - b).abs().max()) for a, b in zip(card_out, cpu_out))
+    scale = float(cpu_out[0].abs().max())
+    row = {"phase": f"{name}_timing", "card": card, "envs": B,
+           "grid": f"{cfg.grid_m}x{cfg.grid_n}",
+           "net": type(ts.net).__name__,
+           "bc_actions_equal_teacher_argmax": bc_equal,
+           "agent_steps": cfg.episode_len, "agent_step_ms": step_ms,
+           "env_steps_per_s": cfg.episode_len * cfg.light_iterations * B
+           / dt,
+           "rollout_ms_per_window": rollout_ms,
+           "rollout_ms_per_step": rollout_ms / cfg.batch_size,
+           "update_ms_per_window": update_ms,
+           "update_ms_per_step": update_ms / cfg.batch_size,
+           "window_ms": window_ms,
+           "window_share_of_step": window_ms / step_ms,
+           "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                    "matmul": torch.backends.cuda.matmul.allow_tf32},
+           "forward_envs": nb, "forward_max_abs_err": err,
+           "forward_max_abs_score": scale, "forward_rel_err": err / scale,
+           "forward_tolerance_rel": 1e-5,
+           "update_stats": [float(x) for x in stats],
+           "episode_stats": dict(zip(("loss", "mean_reward", "policy_loss",
+                                      "value_loss", "entropy"), ep_stats))}
+    emit(row)
+    if not bc_equal:
+        raise SmokeFailure(f"{name}: the BC rollout's actions differ from "
+                           "the card teacher's argmax")
+    if not err <= 1e-5 * scale:
+        raise SmokeFailure(f"{name}: the card's forward differs from the "
+                           "CPU's beyond 1e-5")
+    if not all(math.isfinite(x) for x in list(ep_stats) + row[
+            "update_stats"]):
+        raise SmokeFailure(f"{name} timing gave a non-finite stat")
+    return row
+
+
 def greedy_config(**kw):
     """The greedy baseline at the JAX package's default widths (3x3,
     120 agent steps an episode) on 4096 envs."""
@@ -1618,6 +1819,10 @@ def main():
         "qlearn_validate_rewards": val_row["rewards"]})
     exact_rows = exact_qlearn_phase(card, args.exact_envs)
     conv_rows = conv_qlearn_phase(card)
+    a3c_phase(card, "a3c", {})
+    a3c_phase(card, "a3c_conv", A3C_CONV_KW)
+    a3c_rows = {name: a3c_timing_phase(card, name, kw)
+                for name, kw in (("a3c", {}), ("a3c_conv", A3C_CONV_KW))}
     k2_state, k2_row = k2_phase(card)
     gbenv, grollout, genv, ggen = greedy_run
     bench_gen = torch.Generator(device=DEVICE)
@@ -1653,6 +1858,9 @@ def main():
           "exact_refresh_seconds": exact_rows[2]["refresh_seconds"],
           "conv_qlearn_agent_step_ms": conv_rows[2]["agent_step_ms"],
           "conv_window_share_of_step": conv_rows[2]["window_share_of_step"],
+          **{f"{name}_{k}": r[k] for name, r in a3c_rows.items()
+             for k in ("agent_step_ms", "window_share_of_step",
+                       "update_ms_per_window")},
           "ms_over_core": {r["variant"]: r["ms"] / core["ms"]
                            for r in (tel, decel, regular, k2)}})
 

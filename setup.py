@@ -7,7 +7,8 @@ setup(
                  "framework (JAX/XLA)"),
     packages=find_packages(exclude=("tests",)),
     package_data={"traffic_env_tpu.runtime": ["traffic_native.cpp"],
-                  "traffic_env_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "traffic_env_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                            "teachers/*.npz"]},
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy"],
     python_requires=">=3.10",
 )

@@ -263,3 +263,94 @@ def test_convqnet_forward_on_card_matches_cpu():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _a3c_net(kind, gen):
+    """A 3x3 A3CNet (20 frames of 13 columns) or a 5x5 ConvGRUA3CNet, its
+    weights drawn from ``gen``."""
+    from traffic_env_tpu_torch.models.nets import A3CNet, ConvGRUA3CNet
+    if kind == "a3c":
+        return A3CNet(20 * 117, 9, 9, generator=gen), 20 * 117, 9
+    return ConvGRUA3CNet(5, 5, 20 * 325, generator=gen), 20 * 325, 25
+
+
+@pytest.fixture
+def no_tf32():
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["a3c", "conv"])
+def test_a3c_net_forward_on_card_matches_cpu(kind, no_tf32):
+    """On a CUDA card, TF32 off: A3CNet (3x3, history 20, occupancy) and
+    ConvGRUA3CNet (5x5) over 4 steps of 512 envs from a non-zero carry,
+    with resets after step 1 for half the envs: scores, values and the
+    carry within 1e-5 of the largest |value| of the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    net, d, _ = _a3c_net(kind, gen)
+    B, T = 512, 4
+    obs = torch.rand((B, T, d), generator=gen) * 2
+    carry = torch.rand(net.initial_carry(B).shape, generator=gen) - 0.5
+    reset = torch.zeros((B, T), dtype=torch.bool)
+    reset[::2, 1] = True
+    with torch.no_grad():
+        want = net(obs, carry, reset)
+        got = net.to("cuda")(obs.cuda(), carry.cuda(), reset.cuda())
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(
+            w.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["a3c", "conv"])
+def test_a3c_loss_and_grads_on_card_match_cpu(kind, no_tf32):
+    """On a CUDA card, TF32 off: a3c's window loss (6 steps of 256
+    envs, dones mid-window, the gated anchor term) within 1e-5 relative
+    of the CPU's, and every gradient within 1e-4 of that tensor's
+    largest |grad|, on the same weights and inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import copy
+    import types
+    from traffic_env_tpu_torch.algorithms import a3c
+    from traffic_env_tpu_torch.topology import GridRoad
+    gen = torch.Generator()
+    gen.manual_seed(2)
+    net, d, I = _a3c_net(kind, gen)
+    m = 3 if kind == "a3c" else 5
+    cfg = Config(trainer="a3c", conv_gru=kind == "conv", grid_m=m,
+                 grid_n=m, bc_anchor=1.0, bc_anchor_gated=True).derive()
+    T, B = 6, 256
+    obs = torch.rand((T, B, d), generator=gen) * 2
+    act = (torch.rand((T, B, I), generator=gen) < 0.5).float()
+    expert = (torch.rand((T, B, I), generator=gen) < 0.5).float()
+    adv = torch.randn((T, B, I), generator=gen)
+    ret = torch.randn((T, B, I), generator=gen)
+    done = torch.zeros((T, B), dtype=torch.bool)
+    done[2, ::3] = True
+    carry0 = torch.rand(net.initial_carry(B).shape, generator=gen) - 0.5
+    out = {}
+    for dev, n in (("cpu", net), ("cuda", copy.deepcopy(net).cuda())):
+        benv = types.SimpleNamespace(n_intersections=I, n_envs=B,
+                                     device=torch.device(dev))
+        fns = a3c.make_fns(cfg, benv, GridRoad(m, m, 250.0))
+        args = [x.to(dev) for x in (obs, act, adv, ret, done, carry0,
+                                    expert)]
+        loss, _ = fns.loss_fn(n, *args, 1.0)
+        loss.backward()
+        out[dev] = (float(loss.detach()),
+                    {k: p.grad.cpu() for k, p in n.named_parameters()})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for k, w in out["cpu"][1].items():
+        assert float((out["cuda"][1][k] - w).abs().max()) <= \
+            1e-4 * float(w.abs().max()), k

@@ -1,7 +1,7 @@
 """Learners and scripted baselines, dispatched by trainer name
 (counterpart of ``traffic_env_tpu/algorithms/__init__.py``).  The port
-has qlearn and the six baselines; the other learners are not ported yet
-and raise, naming the ROADMAP item that brings each."""
+has qlearn, a3c and the six baselines; the other learners are not
+ported yet and raise, naming the ROADMAP item that brings each."""
 
 from __future__ import annotations
 
@@ -13,9 +13,9 @@ from ..config import Config
 
 _BASELINES = ("random", "const0", "const1", "fixed", "greedy",
               "spacedgreedy")
-_PORTED = ("qlearn",) + _BASELINES
+_PORTED = ("qlearn", "a3c") + _BASELINES
 # trainer -> ROADMAP queue 1 item that ports it
-_NOT_PORTED = {"qrnn": 9, "a3c": 8, "polgrad_rnn": 9, "cem": 9}
+_NOT_PORTED = {"qrnn": 9, "polgrad_rnn": 9, "cem": 9}
 
 
 def run_alg(cfg: Config):

@@ -1,9 +1,9 @@
 """Shared training lifecycle (counterpart of
 ``traffic_env_tpu/algorithms/common.py``): the env for a config, the
-``--exact`` arrival stream and its refresh, the train/validate
-dispatch, the logdir (wipe and settings.json on a fresh run, restore on
---restore), checkpoints, and validation bookkeeping with the
-validate-mode telemetry.
+``--exact`` arrival stream and its refresh, the imitation expert of the
+sigmoid-policy learners, the train/validate dispatch, the logdir (wipe
+and settings.json on a fresh run, restore on --restore), checkpoints,
+and validation bookkeeping with the validate-mode telemetry.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from ..config import (Config, derive_spawn_rate, entry_spec,
 from ..envs.fast_core import cars_per_road
 from ..envs.rollout import BatchedEnv, make_batched_env
 from ..envs.spawn import ScheduleStream
-from ..interop import schedule_from_arrays
+from ..interop import load_teacher, schedule_from_arrays
 from ..topology import GridRoad
 from ..utils.checkpoint import (Checkpointer, load_settings, remkdir,
                                 snapshot_settings)
@@ -130,6 +130,43 @@ def refresh_schedule(benv: BatchedEnv, ts) -> None:
     called at the top of every train-loop iteration and before each
     validation episode."""
     ts.env = refresh_env_schedule(benv, ts.env)
+
+
+def make_expert_action(cfg: Config, benv: BatchedEnv, topo: GridRoad):
+    """The BC/anchor expert of the sigmoid-policy learners:
+    ``expert(t, env, obs_bf) -> (B, I) int32`` actions in the learner's
+    encoding, or None when no imitation flag is set.
+
+    ``bc_expert="greedy"`` is the scripted greedy baseline: with
+    ``bc_gated`` it re-picks at ``t % spacing == 0`` and holds the
+    current phase between picks, otherwise it picks at every step; with
+    ``learn_switch`` the action is the pick xor the phase.
+    ``bc_expert="qlearn"`` is the argmax of the teacher that
+    ``load_teacher(cfg.bc_expert_ckpt)`` reads, on the batch-first flat
+    obs ``obs_bf`` (so the history, occupancy and grid must be the
+    teacher's)."""
+    if not (cfg.bc_episodes or cfg.bc_anchor > 0):
+        return None
+    if cfg.bc_expert == "qlearn":
+        teacher = load_teacher(cfg.bc_expert_ckpt, cfg, benv.device)
+
+        def expert_action(t, env, obs_bf):
+            with torch.no_grad():
+                return torch.argmax(teacher(obs_bf), dim=-1).to(torch.int32)
+        return expert_action
+
+    from .baselines import make_policies
+    greedy = make_policies(cfg, benv, topo)["greedy"]
+
+    def expert_action(t, env, obs_bf):
+        phase = env.sim.phase
+        raw, _ = greedy(t if cfg.bc_gated else 0, None, env, phase)
+        if cfg.learn_switch:
+            raw = raw ^ phase
+        # (I, B) -> the learner's (B, I), a copy: ``raw`` may be the
+        # state's own phase tensor, which the next window writes
+        return raw.T.clone(memory_format=torch.contiguous_format)
+    return expert_action
 
 
 def handle_modes(cfg: Config, make_state: Callable, train: Callable,

@@ -1,12 +1,15 @@
 """Exploration policies and annealing (counterpart of
-``traffic_env_tpu/algorithms/exploration.py``; the sigmoid helpers of
-the policy-gradient learners are not ported yet).
+``traffic_env_tpu/algorithms/exploration.py``).
 
 * ``anneal``: linear decay from start to end over annealing_episodes,
   stepped once per episode, floored at end, in float32.
 * ``softmax_decision``: per-agent argmax over the last axis of a score
   tensor; e-greedy replaces each agent's action with a uniform draw
   with probability eps; boltzman samples softmax(scores / temperature).
+* ``sigmoid_decision``: independent Bernoulli heads; e-greedy mixes the
+  probabilities toward 0.5, proportional samples the raw sigmoids.
+  ``sigmoid_greedy`` rounds them (half to even, as ``jnp.round``), and
+  ``entropy`` is the mean Bernoulli score entropy summary.
 
 Random draws come from an explicit ``torch.Generator`` on the scores'
 device.
@@ -62,3 +65,30 @@ def softmax_decision(generator: torch.Generator, scores: torch.Tensor,
         gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
         return torch.argmax(scores / eps + gumbel, dim=-1).to(torch.int32)
     raise ValueError(f"Unknown exploration type {mode}")
+
+
+def sigmoid_decision(generator: torch.Generator, scores: torch.Tensor,
+                     eps: float, mode: str = "e_greedy",
+                     uniform: torch.Tensor | None = None) -> torch.Tensor:
+    """Bernoulli per-agent heads: int32 0/1, 1 where a uniform draw from
+    ``generator`` (or the given ``uniform``) is below the probability,
+    for e_greedy ``eps * 0.5 + (1 - eps) * sigmoid(scores)``."""
+    probs = torch.sigmoid(scores)
+    if mode == "e_greedy":
+        probs = eps * 0.5 + (1 - eps) * probs
+    elif mode != "proportional":
+        raise ValueError(f"Unknown exploration type {mode}")
+    if uniform is None:
+        uniform = torch.rand(probs.shape, generator=generator,
+                             device=scores.device)
+    return (uniform < probs).to(torch.int32)
+
+
+def sigmoid_greedy(scores: torch.Tensor) -> torch.Tensor:
+    """round(sigmoid(scores)) as int32."""
+    return torch.round(torch.sigmoid(scores)).to(torch.int32)
+
+
+def entropy(probs: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """-mean(p * log(p + eps))."""
+    return -torch.mean(probs * torch.log(probs + eps))

@@ -10,10 +10,17 @@ key word's bits, and ``resets`` when given and otherwise 0.
 included).
 ``schedule_from_arrays`` carries a schedule, its ``aidx`` included.
 ``qnet_state_dict_from_flax`` and ``convqnet_state_dict_from_flax`` turn
-a flax ``QNet`` or ``ConvQNet`` param tree into the port's state_dict.
+a flax ``QNet`` or ``ConvQNet`` param tree into the port's state_dict,
+and ``a3cnet_state_dict_from_flax`` and
+``convgru_a3c_state_dict_from_flax`` an ``A3CNet`` or ``ConvGRUA3CNet``
+tree.  ``load_teacher`` reads a distillation teacher: a ``.npz`` of a
+flax ``QNet``/``ConvQNet`` tree (``convert_teachers.py`` writes the
+repo's) or the port's own qlearn checkpoint directory.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -75,6 +82,14 @@ def schedule_from_arrays(sched, device="cuda") -> SpawnSchedule:
         aidx=None if aidx is None else np.asarray(aidx))
 
 
+def _kernel(a) -> torch.Tensor:
+    """A flax kernel as the torch layer's weight: Dense (in, out) ->
+    (out, in), Conv (kh, kw, in, out) -> (out, in, kh, kw)."""
+    a = np.asarray(a, np.float32)
+    return torch.tensor(np.ascontiguousarray(
+        a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1)))
+
+
 def qnet_state_dict_from_flax(params) -> dict:
     """A flax ``QNet`` param tree (``{"params": {"Dense_i": {"kernel",
     "bias"}}}``, numpy leaves) -> the port's ``QNet`` state_dict.  Flax
@@ -83,8 +98,7 @@ def qnet_state_dict_from_flax(params) -> dict:
     out = {}
     for i in range(len(tree)):
         layer = tree[f"Dense_{i}"]
-        out[f"dense.{i}.weight"] = torch.tensor(
-            np.asarray(layer["kernel"], np.float32).T.copy())
+        out[f"dense.{i}.weight"] = _kernel(layer["kernel"])
         out[f"dense.{i}.bias"] = torch.tensor(
             np.asarray(layer["bias"], np.float32))
     return out
@@ -99,8 +113,89 @@ def convqnet_state_dict_from_flax(params) -> dict:
     out = {}
     for i in range(len(tree)):
         layer = tree[f"Conv_{i}"]
-        out[f"conv.{i}.weight"] = torch.tensor(np.ascontiguousarray(
-            np.asarray(layer["kernel"], np.float32).transpose(3, 2, 0, 1)))
+        out[f"conv.{i}.weight"] = _kernel(layer["kernel"])
         out[f"conv.{i}.bias"] = torch.tensor(
             np.asarray(layer["bias"], np.float32))
     return out
+
+
+def _named_state_dict_from_flax(params) -> dict:
+    """A flax param tree whose module names are the torch module's
+    attribute names -> that module's state_dict: ``a/b/kernel`` becomes
+    ``a.b.weight`` (transposed), ``a/b/bias`` ``a.b.bias``."""
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            elif k == "kernel":
+                out[".".join(prefix + ("weight",))] = _kernel(v)
+            else:
+                out[".".join(prefix + (k,))] = torch.tensor(
+                    np.asarray(v, np.float32))
+
+    walk(params.get("params", params), ())
+    return out
+
+
+def a3cnet_state_dict_from_flax(params) -> dict:
+    """A flax ``A3CNet`` tree (``Dense_0``, ``GRUCell_0`` with ``ir``,
+    ``iz``, ``in``, ``hr``, ``hz``, ``hn``, ``Dense_1``, ``score_layer``,
+    ``value_layer``) -> the port's ``A3CNet`` state_dict."""
+    return _named_state_dict_from_flax(params)
+
+
+def convgru_a3c_state_dict_from_flax(params) -> dict:
+    """A flax ``ConvGRUA3CNet`` tree (``ConvGRUCell_0`` with
+    ``update_gate``, ``reset_gate``, ``candidate``; ``score_head``,
+    ``value_head``) -> the port's ``ConvGRUA3CNet`` state_dict."""
+    return _named_state_dict_from_flax(params)
+
+
+def _unflatten(flat: dict) -> dict:
+    """{"a/b/c": array} -> nested dict."""
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
+def load_teacher(path: str, cfg, device="cuda"):
+    """A distillation teacher in eval mode on ``device``: a ``QNet`` or,
+    when its tree has ``Conv*`` layers, a ``ConvQNet`` on ``cfg``'s
+    grid.  ``path`` is a ``.npz`` of a flax ``params_main`` tree (keys
+    ``params/Dense_0/kernel`` ...), or a directory holding the port's
+    qlearn checkpoint (``best.ckpt``, else ``model.ckpt``), whose
+    ``main`` net it loads."""
+    from .models.nets import ConvQNet, QNet
+    from .utils.checkpoint import Checkpointer
+    if os.path.isdir(path):
+        ck = Checkpointer(path)
+        ckpt = ck.latest_path("best.ckpt") or ck.latest_path("model.ckpt")
+        if ckpt is None:
+            raise FileNotFoundError(
+                f"no port checkpoint (best.ckpt / model.ckpt) in {path}; "
+                "a JAX package checkpoint converts with "
+                "convert_teachers.py")
+        sd = torch.load(ckpt, map_location="cpu", weights_only=True)["main"]
+    else:
+        with np.load(path) as z:
+            tree = _unflatten({k: z[k] for k in z.files})
+        conv = any(k.startswith("Conv") for k in tree["params"])
+        sd = (convqnet_state_dict_from_flax if conv
+              else qnet_state_dict_from_flax)(tree)
+    conv = "conv.0.weight" in sd
+    prefix = "conv" if conv else "dense"
+    first, last = sd[f"{prefix}.0.weight"], sd[f"{prefix}.3.weight"]
+    if conv:
+        m, n = cfg.grid_m, cfg.grid_n
+        net = ConvQNet(m, n, first.shape[1] * m * n, last.shape[0])
+    else:
+        net = QNet(first.shape[1], last.shape[0] // 2)
+    net.load_state_dict(sd)
+    return net.to(device).eval()

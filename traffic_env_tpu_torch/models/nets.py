@@ -1,4 +1,5 @@
-"""Q networks (counterpart of ``traffic_env_tpu/models/nets.py``).
+"""Q networks and the GRU actor-critics (counterpart of
+``traffic_env_tpu/models/nets.py``).
 
 ``QNet`` is the double-DQN trunk with a residual block: obs -> 200 relu
 -> 200 -> +resid(200) -> relu -> per-intersection Q values of shape
@@ -18,6 +19,11 @@ import torch
 from torch import nn
 
 WIDTH = 200
+
+
+def _orthogonal_(weight: torch.Tensor, generator=None) -> None:
+    """flax's default recurrent kernel init (``initializers.orthogonal``)."""
+    nn.init.orthogonal_(weight, generator=generator)
 
 
 def _lecun_normal_(weight: torch.Tensor, generator=None) -> None:
@@ -124,3 +130,163 @@ class ConvQNet(nn.Module):
         h2 = torch.relu(h1 + resid)
         q = c3(h2).permute(0, 2, 3, 1)              # (b, m, n, choices)
         return q.reshape(b, self.m * self.n, self.n_choices)
+
+
+def _dense(n_in: int, n_out: int, generator, bias: bool = True,
+           init=_lecun_normal_) -> nn.Linear:
+    """A flax ``Dense``: ``init`` kernel, zero bias."""
+    layer = nn.Linear(n_in, n_out, bias=bias)
+    init(layer.weight, generator)
+    if bias:
+        nn.init.zeros_(layer.bias)
+    return layer
+
+
+class GRUCell(nn.Module):
+    """flax 0.12's ``nn.GRUCell`` (not ``torch.nn.GRUCell``): with
+    ``ir``/``iz``/``in`` on the input and ``hr``/``hz``/``hn`` on the
+    state,
+
+        r = sigmoid(ir(x) + hr(h)),  z = sigmoid(iz(x) + hz(h)),
+        n = tanh(in(x) + r * hn(h)),  h' = (1 - z) * n + z * h,
+
+    where the input layers and ``hn`` carry a bias and ``hr``/``hz`` do
+    not.  Input kernels lecun normal, recurrent kernels orthogonal,
+    biases zero.  ``input_gates`` computes the input layers of a whole
+    sequence at once; ``step`` takes one step's of them and the state."""
+
+    def __init__(self, n_in: int, hidden: int, generator=None):
+        super().__init__()
+        for name in ("ir", "iz", "in"):
+            self.add_module(name, _dense(n_in, hidden, generator))
+        for name in ("hr", "hz"):
+            self.add_module(name, _dense(hidden, hidden, generator,
+                                         bias=False, init=_orthogonal_))
+        self.add_module("hn", _dense(hidden, hidden, generator,
+                                     init=_orthogonal_))
+
+    def input_gates(self, x: torch.Tensor):
+        return (self.ir(x), self.iz(x), getattr(self, "in")(x))
+
+    def step(self, gates, h: torch.Tensor) -> torch.Tensor:
+        xr, xz, xn = gates
+        r = torch.sigmoid(xr + self.hr(h))
+        z = torch.sigmoid(xz + self.hz(h))
+        n = torch.tanh(xn + r * self.hn(h))
+        return (1.0 - z) * n + z * h
+
+
+def _run_cell(n_steps, cell_step, carry, reset):
+    """Run ``carry = cell_step(t, carry)`` for t < n_steps; where
+    ``reset[:, t]`` the carry is zeroed after step t (an env that
+    finished at step t starts step t + 1 from zeros).  Returns the stack
+    of the unmasked outputs on axis 1 and the final (masked) carry."""
+    outs = []
+    for t in range(n_steps):
+        h = cell_step(t, carry)
+        outs.append(h)
+        if reset is not None:
+            keep = ~reset[:, t].reshape((-1,) + (1,) * (h.dim() - 1))
+            h = torch.where(keep, h, 0.0)
+        carry = h
+    return torch.stack(outs, 1), carry
+
+
+class A3CNet(nn.Module):
+    """The a3c actor-critic: batch-first obs (B, T, ...) and a carry
+    (B, hidden) in; scores (B, T, n_actions), values (B, T, reward_size)
+    and the final carry out.  ``reset`` (B, T) bool, when given, zeroes
+    the carry after each step it marks, as the rollout does at an
+    env's autoreset.  Layers: ``Dense_0``, ``GRUCell_0``, ``Dense_1``,
+    ``score_layer``, ``value_layer``, drawn from ``generator`` as flax
+    initialises them."""
+
+    def __init__(self, obs_size: int, n_actions: int, reward_size: int,
+                 hidden: int = 160, generator=None):
+        super().__init__()
+        self.hidden = hidden
+        self.Dense_0 = _dense(obs_size, hidden, generator)
+        self.GRUCell_0 = GRUCell(hidden, hidden, generator)
+        self.Dense_1 = _dense(hidden, hidden, generator)
+        self.score_layer = _dense(hidden, n_actions, generator)
+        self.value_layer = _dense(hidden, reward_size, generator)
+
+    def initial_carry(self, batch: int, device=None) -> torch.Tensor:
+        return torch.zeros(batch, self.hidden, device=device)
+
+    def forward(self, obs: torch.Tensor, carry: torch.Tensor,
+                reset: torch.Tensor | None = None):
+        b, t = obs.shape[0], obs.shape[1]
+        x = torch.relu(self.Dense_0(obs.reshape(b, t, -1)))
+        cell = self.GRUCell_0
+        gates = cell.input_gates(x)
+        seq, carry = _run_cell(
+            t, lambda i, h: cell.step(tuple(g[:, i] for g in gates), h),
+            carry, reset)
+        h0 = torch.relu(self.Dense_1(seq))
+        return self.score_layer(h0), self.value_layer(h0), carry
+
+
+class ConvGRUCell(nn.Module):
+    """The 2-D convolutional GRU cell over (B, C, m, n) maps: 3x3 SAME
+    convolutions without bias, named as flax's,
+
+        z = sigmoid(update_gate([h, x])),  r = sigmoid(reset_gate([h, x])),
+        h~ = tanh(candidate([r * h, x])),  h' = (1 - z) * h + z * h~,
+
+    with the state's channels before the input's."""
+
+    def __init__(self, n_in: int, hidden: int, generator=None):
+        super().__init__()
+        for name in ("update_gate", "reset_gate", "candidate"):
+            conv = nn.Conv2d(hidden + n_in, hidden, 3, padding=1,
+                             bias=False)
+            _lecun_normal_(conv.weight, generator)
+            self.add_module(name, conv)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        both = torch.cat([h, x], 1)
+        z = torch.sigmoid(self.update_gate(both))
+        r = torch.sigmoid(self.reset_gate(both))
+        h_tilde = torch.tanh(self.candidate(torch.cat([r * h, x], 1)))
+        return (1 - z) * h + z * h_tilde
+
+
+class ConvGRUA3CNet(nn.Module):
+    """The conv-GRU a3c policy over the intersection grid: batch-first
+    flat obs (B, T, d) -> ``obs_grid_channels`` maps -> ``ConvGRUCell``
+    over T -> 1x1 ``score_head``/``value_head`` convolutions with bias:
+    scores and values (B, T, m * n), intersection row * n + col.
+
+    The carry is channels-first, (B, hidden_channels, m, n); the JAX
+    package's is (B, m, n, hidden_channels), so carries cross with a
+    permute (0, 3, 1, 2).  ``reset`` as in ``A3CNet``."""
+
+    def __init__(self, m: int, n: int, obs_size: int,
+                 hidden_channels: int = 32, generator=None):
+        super().__init__()
+        self.m, self.n, self.hidden = m, n, hidden_channels
+        width = _frame_width(obs_size, m * n)
+        c_in = obs_size // (m * n) if width else 9
+        self.ConvGRUCell_0 = ConvGRUCell(c_in, hidden_channels, generator)
+        for name in ("score_head", "value_head"):
+            conv = nn.Conv2d(hidden_channels, 1, 1)
+            _lecun_normal_(conv.weight, generator)
+            nn.init.zeros_(conv.bias)
+            self.add_module(name, conv)
+
+    def initial_carry(self, batch: int, device=None) -> torch.Tensor:
+        return torch.zeros(batch, self.hidden, self.m, self.n,
+                           device=device)
+
+    def forward(self, obs: torch.Tensor, carry: torch.Tensor,
+                reset: torch.Tensor | None = None):
+        b, t = obs.shape[0], obs.shape[1]
+        g = obs_grid_channels(obs.reshape(b, t, -1), self.m, self.n)
+        x = g.permute(0, 1, 4, 2, 3)               # (b, t, C, m, n)
+        cell = self.ConvGRUCell_0
+        seq, carry = _run_cell(t, lambda i, h: cell(h, x[:, i]), carry,
+                               reset)
+        flat = seq.reshape((b * t,) + tuple(seq.shape[2:]))
+        head = lambda conv: conv(flat).reshape(b, t, self.m * self.n)
+        return head(self.score_head), head(self.value_head), carry

@@ -68,6 +68,23 @@ Phases, one JSON line each:
    ms, env-steps/s), the window kernel's share of the step, and the
    card's forward against the CPU's (within 1e-5 of the largest
    |score|).
+   qrnn: the qrnn learner through ``run_alg`` at the JAX package's
+   defaults (3x3, 4096 envs, DuelingQRNN 220, trace 8, batch 30, the
+   episode replay at 4096 slots, which fills in the first episode): 2
+   training episodes (240 TD steps) with a validation, then a
+   validate-mode restore; launches == windows by variant, finite
+   losses.  polgrad_rnn: the same on the qlearn-teacher distillation
+   config of BASELINE.md:56 (--occupancy_obs --history=20, the
+   converted 3x3 teacher, batch_size 1, anchor 1.0, finetune_lr 1e-4;
+   bc_episodes cut from 1000 to 1).  qrnn_timing / polgrad_rnn_timing:
+   on a fresh state, the rollout ms a step, qrnn's 120 TD steps of an
+   episode and polgrad's update (CUDA events), a timed training
+   episode, the window kernel's share of a rollout step, polgrad's BC
+   actions against the card teacher's argmax (equal), and each net's
+   card forward against the CPU's (within 1e-5 of the largest
+   |output|).  cem: ``run`` through ``run_alg`` at its 60 envs for 3
+   iterations (launches == windows, weights.json written), then a
+   generation at --num_tries=64 (3,840 envs) timed, with its launches.
 8. variant_parity: the decel_penalty, regular-spawn and k > 1
    (two-archetype) variants against their plain version on the card,
    3x3 grid, 4096 envs, 50 windows, autoreset on: decel with schedule
@@ -138,8 +155,9 @@ import numpy as np
 import torch
 
 from traffic_env_tpu_torch import constants as C
-from traffic_env_tpu_torch.algorithms import (a3c, baselines, common,
-                                              qlearn, run_alg)
+from traffic_env_tpu_torch.algorithms import (a3c, baselines, cem, common,
+                                              polgrad_rnn, qlearn, qrnn,
+                                              run_alg)
 from traffic_env_tpu_torch.algorithms.common import (attach_schedule_stream,
                                                      build_env,
                                                      exact_chunk_ticks,
@@ -211,6 +229,17 @@ A3C_CONV_KW = dict(A3C_KW, conv_gru=True, grid_m=5, grid_n=5,
                    num_envs=CONV_ENVS,
                    bc_expert_ckpt=os.path.join(TEACHERS,
                                                "qlearn_5x5_conv_occ.npz"))
+
+# the last three learners: qrnn at the JAX package's defaults (3x3,
+# DuelingQRNN 220, trace 8, batch 30, the episode replay at one slot an
+# env); polgrad_rnn on the qlearn-teacher distillation config of
+# BASELINE.md:56, bc_episodes cut from 1000 to 1 so that the second
+# training episode runs past the BC phase; cem at its own 60 envs, and
+# timed at --num_tries=64 (3,840 envs)
+PG_KW = dict(occupancy_obs=True, history=20, bc_expert="qlearn",
+             bc_expert_ckpt=os.path.join(TEACHERS, "qlearn_3x3_occ.npz"),
+             bc_episodes=1, batch_size=1, finetune_lr=1e-4, bc_anchor=1.0)
+CEM_TRIES = 64
 
 
 class SmokeFailure(Exception):
@@ -1323,6 +1352,332 @@ def a3c_timing_phase(card, name, kw):
     return row
 
 
+def learner_config(trainer, **kw):
+    """``trainer`` at the JAX package's default widths on 4096 envs."""
+    return Config(**{"trainer": trainer, "num_envs": N_ENVS,
+                     "platform": "cpu" if DEVICE == "cpu" else "",
+                     **kw}).derive()
+
+
+def recurrent_phase(card, trainer, kw):
+    """qrnn or polgrad_rnn through run_alg: 2 training episodes (each
+    from a full reset) with a validation at the second, then a
+    validate-mode restore, each with the launch counts set to 0 just
+    before it.  qrnn's replay fills in the first episode, so both run
+    their TD steps; polgrad's first episode is the BC phase."""
+    logdir = tempfile.mkdtemp(prefix=f"chip_smoke_{trainer}_")
+    try:
+        cfg = learner_config(trainer, total_episodes=2, validate_rate=2,
+                             save_rate=1000, summary_rate=1, logdir=logdir,
+                             **kw)
+        reset_w = 1 + cfg.warmup_lights + max(cfg.history, 1) - 1
+        window_cuda.launches.clear()
+        t0 = time.perf_counter()
+        ts = run_alg(cfg)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        # 2 episodes and the validation, each a reset and episode_len
+        train_windows = 3 * (reset_w + cfg.episode_len)
+        metrics = read_metrics(logdir)
+        pick = lambda k: [m["value"] for m in metrics if m["name"] == k]
+        losses = pick("loss_val" if trainer == "qrnn" else "loss")
+        val_r = pick("avg_r_summary")
+        net = ts.main if trainer == "qrnn" else ts.net
+        train_row = {
+            "phase": f"{trainer}_train", "card": card, "envs": cfg.num_envs,
+            "grid": f"{cfg.grid_m}x{cfg.grid_n}",
+            "net": type(net).__name__, "hidden": net.hidden,
+            "episodes": ts.episode, "agent_steps": ts.step,
+            "seconds_with_setup": train_s, "losses": losses,
+            "mean_rewards": pick("mean_reward"),
+            "validation_rewards": val_r,
+            "launches": dict(window_cuda.launches),
+            "windows_run": train_windows}
+        if trainer == "qrnn":
+            train_row.update(td_steps=ts.train_steps,
+                             replay_slots=ts.replay.size,
+                             replay_filled=ts.replay.filled,
+                             max_predicted_q=pick("max_predicted_q"))
+            ok = ts.train_steps == 2 * cfg.episode_len \
+                and ts.replay.filled == ts.replay.size
+        else:
+            train_row.update(teacher=os.path.basename(cfg.bc_expert_ckpt),
+                             n_acc=ts.n_acc)
+            ok = ts.n_acc == 0
+        emit(train_row)
+        check_launches(f"{trainer}_train", {"window": train_windows})
+        if len(losses) != 2 or not all(math.isfinite(x) for x in losses) \
+                or not val_r or ts.episode != 2 or not ok:
+            raise SmokeFailure(f"{trainer} train: no loss or validation, a "
+                               "non-finite loss, or no update")
+        vcfg = learner_config(trainer, mode="validate", restore=True,
+                              total_episodes=1, logdir=logdir, **kw)
+        window_cuda.launches.clear()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            lights, trips, unfinished = run_alg(vcfg)
+        torch.cuda.synchronize()
+        val_windows = reset_w + vcfg.episode_len
+        reward = [float(x) for x in re.findall(r"Reward ([-0-9.e+]+)",
+                                               out.getvalue())]
+        val_row = {"phase": f"{trainer}_validate", "card": card,
+                   "envs": vcfg.num_envs, "rewards": reward,
+                   "trip_times": len(trips), "light_times": len(lights),
+                   "unfinished_cars_per_env": unfinished,
+                   "launches": dict(window_cuda.launches),
+                   "windows_run": val_windows}
+        emit(val_row)
+        check_launches(f"{trainer}_validate",
+                       {"window_telemetry": val_windows})
+        if len(reward) != 1 or not math.isfinite(reward[0]) or not trips:
+            raise SmokeFailure(f"{trainer} validate: no telemetry or no "
+                               "finite reward")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    return train_row, val_row
+
+
+def core_window_ms(cfg, sim, n_envs):
+    """The core variant's CUDA-event ms a window on a copy of ``sim``
+    (``cfg``'s grid, device spawns, lazy autoreset)."""
+    topo, dcfg, _ = build_env(cfg.replace(mode="train"))
+    spec = make_window_spec(topo, dcfg, True, 4)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(9)
+    acts = torch.randint(0, 2, (16, topo.intersections, n_envs),
+                         dtype=torch.int32, device=DEVICE, generator=gen)
+    return time_windows(spec, sim.clone(), acts)
+
+
+def forward_error(net, *inputs):
+    """The card's forward of ``net`` against the CPU's on the same
+    weights and inputs: (largest |difference| over the outputs, largest
+    |first output| on the CPU)."""
+    with torch.no_grad():
+        card_out = [x.cpu() for x in net(*inputs)]
+        cpu_out = copy.deepcopy(net).cpu()(*(x.cpu() for x in inputs))
+    err = max(float((a - b).abs().max()) for a, b in zip(card_out, cpu_out))
+    return err, float(cpu_out[0].abs().max())
+
+
+def qrnn_timing_phase(card):
+    """On a fresh qrnn state: one episode to fill the replay (and its
+    TD steps), then the ms of a 120-step rollout, of an episode's 120
+    TD steps (CUDA events) and of a whole training episode; the window
+    kernel's ms on the path's state and its share of a rollout step;
+    and the card's DuelingQRNN forward against the CPU's on 512 stored
+    traces of 8 steps from a random carry (TF32 off; tolerance 1e-5 of
+    the largest |Q|)."""
+    cfg = learner_config("qrnn")
+    ctx, ts = qrnn.make_state(cfg)
+    fns, B, T = ctx.fns, cfg.num_envs, cfg.episode_len
+    sync = torch.cuda.synchronize
+    fns.run_episode(ts)
+    env, obs = ctx.benv.reset(ts.env)
+    sync()
+    t0 = time.perf_counter()
+    ts.env = fns.collect(ts, env, obs, 0.5)[0]
+    sync()
+    rollout_ms = (time.perf_counter() - t0) * 1e3
+    n_td = max(1, T // cfg.train_rate)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    losses = [fns.td_train(ts, ts.replay.sample_traces(
+        ts.generator, cfg.batch_size, cfg.trace_size))[0]
+        for _ in range(n_td)]
+    e1.record()
+    sync()
+    td_ms = e0.elapsed_time(e1)
+    t0 = time.perf_counter()
+    stats = fns.run_episode(ts)               # ends with a host fetch
+    dt = time.perf_counter() - t0
+    window_ms = core_window_ms(cfg, ts.env.sim, B)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    nb = min(B, 512)
+    carry = torch.rand((nb, ts.main.hidden), generator=gen,
+                       device=DEVICE) - 0.5
+    err, scale = forward_error(ts.main, ts.replay.s[:nb, :cfg.trace_size],
+                               carry)
+    step_ms = rollout_ms / T
+    row = {"phase": "qrnn_timing", "card": card, "envs": B,
+           "grid": f"{cfg.grid_m}x{cfg.grid_n}", "net": "DuelingQRNN",
+           "agent_steps": T, "agent_step_ms": dt / T * 1e3,
+           "env_steps_per_s": T * cfg.light_iterations * B / dt,
+           "rollout_ms_per_step": step_ms,
+           "td_steps": n_td, "td_ms_per_episode": td_ms,
+           "td_ms_per_step": td_ms / n_td,
+           "window_ms": window_ms,
+           "window_share_of_rollout_step": window_ms / step_ms,
+           "window_share_of_agent_step": window_ms / (dt / T * 1e3),
+           "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                    "matmul": torch.backends.cuda.matmul.allow_tf32},
+           "forward_shape": [nb, cfg.trace_size],
+           "forward_max_abs_err": err, "forward_max_abs_q": scale,
+           "forward_rel_err": err / scale, "forward_tolerance_rel": 1e-5,
+           "td_losses_finite": bool(torch.isfinite(
+               torch.stack(losses)).all()),
+           "episode_stats": dict(zip(("mean_reward", "loss", "max_q"),
+                                     stats))}
+    emit(row)
+    if not err <= 1e-5 * scale:
+        raise SmokeFailure("qrnn: the card's forward differs from the "
+                           "CPU's beyond 1e-5")
+    if not row["td_losses_finite"] or not all(math.isfinite(x)
+                                              for x in stats):
+        raise SmokeFailure("qrnn timing gave a non-finite stat")
+    return row
+
+
+def polgrad_timing_phase(card):
+    """On a fresh polgrad_rnn state of the distillation config: the BC
+    episode's actions against the card teacher's argmax on the recorded
+    obs (equal); the ms of its 120-step rollout (host clock) and of its
+    update (the BPTT replay of 120 steps at 4096 envs, the Adam step;
+    CUDA events); a timed training episode past the BC phase (sampled
+    actions, the anchor); the window kernel's share of a rollout step;
+    and the card's PolGradNet forward against the CPU's on 512 envs'
+    first 8 steps from a random carry (TF32 off; tolerance 1e-5 of the
+    largest |score|)."""
+    cfg = learner_config("polgrad_rnn", **PG_KW)
+    ctx, ts = polgrad_rnn.make_state(cfg)
+    fns, B, T = ctx.fns, cfg.num_envs, cfg.episode_len
+    sync = torch.cuda.synchronize
+    env, obs = ctx.benv.reset(ts.env)
+    sync()
+    t0 = time.perf_counter()
+    ts.env, seq = fns.collect(ts, env, obs, 0.05, True)
+    sync()
+    rollout_ms = (time.perf_counter() - t0) * 1e3
+    teacher = load_teacher(cfg.bc_expert_ckpt, cfg, DEVICE)
+    with torch.no_grad():
+        bc_equal = all(torch.equal(seq["act"][t], torch.argmax(
+            teacher(seq["obs"][:, t]), -1).to(torch.float32))
+            for t in range(T))
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(6)
+    nb = min(B, 512)
+    carry = torch.rand((nb, ts.net.hidden), generator=gen,
+                       device=DEVICE) - 0.5
+    err, scale = forward_error(ts.net, seq["obs"][:nb, :8], carry)
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    stats = fns.update(ts, seq, True)
+    e1.record()
+    sync()
+    update_ms = e0.elapsed_time(e1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del seq
+    t0 = time.perf_counter()
+    ep_stats = fns.run_episode(ts)            # ends with a host fetch
+    dt = time.perf_counter() - t0
+    window_ms = core_window_ms(cfg, ts.env.sim, B)
+    step_ms = rollout_ms / T
+    row = {"phase": "polgrad_rnn_timing", "card": card, "envs": B,
+           "grid": f"{cfg.grid_m}x{cfg.grid_n}", "net": "PolGradNet",
+           "obs_floats": max(int(cfg.history), 1) * ctx.benv.obs_dim,
+           "bc_actions_equal_teacher_argmax": bc_equal,
+           "agent_steps": T, "agent_step_ms": dt / T * 1e3,
+           "env_steps_per_s": T * cfg.light_iterations * B / dt,
+           "rollout_ms_per_step": step_ms,
+           "update_ms_per_episode": update_ms,
+           "update_peak_memory_gb": peak_gb,
+           "window_ms": window_ms,
+           "window_share_of_rollout_step": window_ms / step_ms,
+           "window_share_of_agent_step": window_ms / (dt / T * 1e3),
+           "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                    "matmul": torch.backends.cuda.matmul.allow_tf32},
+           "forward_envs": nb, "forward_max_abs_err": err,
+           "forward_max_abs_score": scale, "forward_rel_err": err / scale,
+           "forward_tolerance_rel": 1e-5,
+           "bc_update_stats": [float(x) for x in stats],
+           "episode_stats": dict(zip(("loss", "mean_reward"), ep_stats))}
+    emit(row)
+    if not bc_equal:
+        raise SmokeFailure("polgrad_rnn: the BC rollout's actions differ "
+                           "from the card teacher's argmax")
+    if not err <= 1e-5 * scale:
+        raise SmokeFailure("polgrad_rnn: the card's forward differs from "
+                           "the CPU's beyond 1e-5")
+    if not all(math.isfinite(x) for x in list(ep_stats)
+               + row["bc_update_stats"]):
+        raise SmokeFailure("polgrad_rnn timing gave a non-finite stat")
+    return row
+
+
+def cem_phase(card):
+    """cem through run_alg at its defaults (60 envs, 3 iterations), the
+    launch counts set to 0 just before it; then a generation at
+    --num_tries=64 (3,840 envs) timed after a warm-up one, with its
+    launches, and the window kernel's share of its agent step."""
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_cem_")
+    try:
+        cfg = learner_config("cem", total_episodes=3, logdir=logdir)
+        n_envs = cem.SAMPLE_SIZE * cfg.num_tries
+        reset_w = 1 + cfg.warmup_lights
+        window_cuda.launches.clear()
+        t0 = time.perf_counter()
+        th_mean, means = run_alg(cfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        windows = cfg.total_episodes * (reset_w + cfg.episode_len)
+        with open(os.path.join(logdir, "weights.json")) as f:
+            saved = np.asarray(json.load(f), np.float64)
+        train_row = {"phase": "cem_train", "card": card, "envs": n_envs,
+                     "iterations": len(means), "mean_returns": means,
+                     "seconds_with_setup": secs,
+                     "weights": int(saved.size),
+                     "launches": dict(window_cuda.launches),
+                     "windows_run": windows}
+        emit(train_row)
+        check_launches("cem_train", {"window": windows})
+        if len(means) != cfg.total_episodes \
+                or not np.isfinite(means).all() \
+                or saved.size != th_mean.size or not np.isfinite(saved).all():
+            raise SmokeFailure("cem: a non-finite return or no weights")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+
+    tcfg = learner_config("cem", num_tries=CEM_TRIES)
+    n_envs = cem.SAMPLE_SIZE * CEM_TRIES
+    topo, tcfg, benv = build_env(tcfg, n_envs=n_envs)
+    evaluate = cem.make_eval(tcfg, benv)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    env = benv.init(gen)
+    ths = (np.random.RandomState(0).randn(cem.SAMPLE_SIZE, benv.obs_dim,
+                                          benv.n_intersections)
+           * cem.INITIAL_STD).astype(np.float32)
+    env, _ = evaluate(env, ths)
+    torch.cuda.synchronize()
+    window_cuda.launches.clear()
+    t0 = time.perf_counter()
+    env, ys = evaluate(env, ths)
+    ys = ys.cpu().numpy()                     # the host fetch
+    dt = time.perf_counter() - t0
+    T = tcfg.episode_len
+    timing_windows = 1 + tcfg.warmup_lights + T
+    check_launches("cem_timing", {"window": timing_windows})
+    window_ms = core_window_ms(tcfg, env.sim, n_envs)
+    step_ms = dt / T * 1e3
+    row = {"phase": "cem_timing", "card": card, "envs": n_envs,
+           "num_tries": CEM_TRIES, "agent_steps": T,
+           "generation_seconds": dt, "agent_step_ms": step_ms,
+           "env_steps_per_s": T * tcfg.light_iterations * n_envs / dt,
+           "window_ms": window_ms, "window_share_of_step": window_ms
+           / step_ms, "ys_shape": list(ys.shape),
+           "mean_return": float(ys.mean()),
+           "launches": PATH_LAUNCHES["cem_timing"],
+           "windows_run": timing_windows}
+    emit(row)
+    if ys.shape != (cem.SAMPLE_SIZE, benv.n_intersections) \
+            or not np.isfinite(ys).all():
+        raise SmokeFailure("cem timing: returns of the wrong shape or "
+                           "not finite")
+    return train_row, row
+
+
 def greedy_config(**kw):
     """The greedy baseline at the JAX package's default widths (3x3,
     120 agent steps an episode) on 4096 envs."""
@@ -1823,6 +2178,11 @@ def main():
     a3c_phase(card, "a3c_conv", A3C_CONV_KW)
     a3c_rows = {name: a3c_timing_phase(card, name, kw)
                 for name, kw in (("a3c", {}), ("a3c_conv", A3C_CONV_KW))}
+    recurrent_phase(card, "qrnn", {})
+    recurrent_phase(card, "polgrad_rnn", PG_KW)
+    learner_rows = {"qrnn": qrnn_timing_phase(card),
+                    "polgrad_rnn": polgrad_timing_phase(card),
+                    "cem": cem_phase(card)[1]}
     k2_state, k2_row = k2_phase(card)
     gbenv, grollout, genv, ggen = greedy_run
     bench_gen = torch.Generator(device=DEVICE)
@@ -1861,6 +2221,11 @@ def main():
           **{f"{name}_{k}": r[k] for name, r in a3c_rows.items()
              for k in ("agent_step_ms", "window_share_of_step",
                        "update_ms_per_window")},
+          **{f"{name}_{k}": r[k] for name, r in learner_rows.items()
+             for k in ("agent_step_ms", "rollout_ms_per_step",
+                       "td_ms_per_episode", "update_ms_per_episode",
+                       "window_share_of_rollout_step",
+                       "window_share_of_step") if k in r},
           "ms_over_core": {r["variant"]: r["ms"] / core["ms"]
                            for r in (tel, decel, regular, k2)}})
 

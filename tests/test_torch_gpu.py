@@ -354,3 +354,83 @@ def test_a3c_loss_and_grads_on_card_match_cpu(kind, no_tf32):
     for k, w in out["cpu"][1].items():
         assert float((out["cuda"][1][k] - w).abs().max()) <= \
             1e-4 * float(w.abs().max()), k
+
+
+def _recurrent_net(kind, gen):
+    """A 3x3 DuelingQRNN (occupancy obs) or a PolGradNet on the 2,340-float
+    distillation obs, its weights drawn from ``gen``: (net, obs size)."""
+    from traffic_env_tpu_torch.models.nets import DuelingQRNN, PolGradNet
+    if kind == "qrnn":
+        return DuelingQRNN(117, 9, generator=gen), 117
+    return PolGradNet(20 * 117, 9, generator=gen), 20 * 117
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["qrnn", "polgrad"])
+def test_recurrent_net_forward_on_card_matches_cpu(kind, no_tf32):
+    """On a CUDA card, TF32 off: DuelingQRNN and PolGradNet over 4 steps
+    of 512 envs from a non-zero carry, resets after step 1 for half the
+    envs: the outputs and the carry within 1e-5 of the largest |value|
+    of the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    net, d = _recurrent_net(kind, gen)
+    B, T = 512, 4
+    obs = torch.rand((B, T, d), generator=gen) * 2
+    carry = torch.rand(net.initial_carry(B).shape, generator=gen) - 0.5
+    reset = torch.zeros((B, T), dtype=torch.bool)
+    reset[::2, 1] = True
+    with torch.no_grad():
+        want = net(obs, carry, reset)
+        got = net.to("cuda")(obs.cuda(), carry.cuda(), reset.cuda())
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(
+            w.abs().max())
+
+
+@pytest.mark.gpu
+def test_qrnn_td_grads_on_card_match_cpu(no_tf32):
+    """On a CUDA card, TF32 off: one qrnn TD step (30 traces of 8 steps
+    from a replay of 64 episodes, the 3x3 occupancy obs) gives a loss
+    within 1e-5 relative of the CPU's and every gradient within 1e-4 of
+    that tensor's largest |grad|, on the same weights and batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import copy
+    import types
+    from traffic_env_tpu_torch.algorithms import qrnn
+    from traffic_env_tpu_torch.algorithms.replay import EpisodeReplay
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    net, d = _recurrent_net("qrnn", gen)
+    target = copy.deepcopy(net)
+    for p in target.parameters():
+        p.data.add_(torch.randn(p.shape, generator=gen) * 0.01)
+    cfg = Config(trainer="qrnn", target_update_rate=1000).derive()
+    replay = EpisodeReplay.create(64, 20, d, 9, 9, "cpu")
+    replay.add_episodes(
+        torch.rand((64, 21, d), generator=gen),
+        torch.randint(0, 2, (64, 20, 9), generator=gen, dtype=torch.int32),
+        torch.randn((64, 20, 9), generator=gen),
+        (torch.rand((64, 20), generator=gen) > 0.05).float(),
+        torch.randint(1, 21, (64,), generator=gen, dtype=torch.int32))
+    batch = replay.sample_traces(gen, 30, cfg.trace_size)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        main, tgt = copy.deepcopy(net).to(dev), copy.deepcopy(target).to(dev)
+        ts = types.SimpleNamespace(
+            main=main, target=tgt, train_steps=0,
+            opt=torch.optim.Adam(main.parameters(), lr=0.0))
+        benv = types.SimpleNamespace(n_intersections=9, n_envs=64,
+                                     device=torch.device(dev))
+        loss, _ = qrnn.make_fns(cfg, benv).td_train(
+            ts, [x.to(dev) for x in batch])
+        out[dev] = (float(loss), {k: p.grad.cpu()
+                                  for k, p in main.named_parameters()})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for k, w in out["cpu"][1].items():
+        assert float((out["cuda"][1][k] - w).abs().max()) <= \
+            1e-4 * float(w.abs().max()), k

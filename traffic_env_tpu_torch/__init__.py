@@ -3,7 +3,7 @@
 The grid-road IDM traffic simulator, batched over thousands of lockstep
 envs, with its light-period window as a hand-written CUDA kernel for
 Hopper (``csrc/window.cu``) and that kernel's plain PyTorch version for
-the CPU, and the qlearn trainer on top (``python -m
+the CPU, and the learners and scripted baselines on top (``python -m
 traffic_env_tpu_torch --trainer=qlearn``).  Imports torch and numpy
 only; never jax, and nothing of the JAX package.
 """

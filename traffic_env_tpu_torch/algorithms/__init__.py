@@ -1,7 +1,6 @@
 """Learners and scripted baselines, dispatched by trainer name
-(counterpart of ``traffic_env_tpu/algorithms/__init__.py``).  The port
-has qlearn, a3c and the six baselines; the other learners are not
-ported yet and raise, naming the ROADMAP item that brings each."""
+(counterpart of ``traffic_env_tpu/algorithms/__init__.py``): qlearn,
+qrnn, a3c, polgrad_rnn, cem and the six baselines."""
 
 from __future__ import annotations
 
@@ -13,9 +12,7 @@ from ..config import Config
 
 _BASELINES = ("random", "const0", "const1", "fixed", "greedy",
               "spacedgreedy")
-_PORTED = ("qlearn", "a3c") + _BASELINES
-# trainer -> ROADMAP queue 1 item that ports it
-_NOT_PORTED = {"qrnn": 9, "polgrad_rnn": 9, "cem": 9}
+_PORTED = ("qlearn", "qrnn", "a3c", "polgrad_rnn", "cem") + _BASELINES
 
 
 def run_alg(cfg: Config):
@@ -29,13 +26,9 @@ def run_alg(cfg: Config):
             "--single_agent flattens the action space to one 2^I-way "
             "head, which only the argmax learners (qlearn, qrnn) can "
             "express")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"trainer {name!r} is not ported yet (ROADMAP queue 1, item "
-            f"{_NOT_PORTED[name]})")
     if name not in _PORTED:
         raise ValueError(f"unknown trainer {name!r}; choose from "
-                         f"{_PORTED + tuple(_NOT_PORTED)}")
+                         f"{_PORTED}")
     if cfg.debug:
         # the JAX package traps NaNs inside its jitted programs; autograd's
         # anomaly mode raises on a NaN in a backward pass

@@ -100,17 +100,20 @@ class A3CCtx(NamedTuple):
     cfg: Config
 
 
-def window_lr(cfg: Config, updates: int) -> float:
+def window_lr(cfg: Config, updates: int,
+              bc_updates: int | None = None) -> float:
     """The learning rate of the update after ``updates`` updates, as the
     float32 that ``optax.piecewise_constant_schedule(learning_rate,
-    {bc_windows: finetune_lr / learning_rate})`` gives: scaled from
-    count ``bc_windows`` on (``sign(0) = 0``).  With no BC phase or no
+    {bc_updates: finetune_lr / learning_rate})`` gives: scaled from
+    count ``bc_updates`` on (``sign(0) = 0``).  ``bc_updates`` defaults
+    to a3c's, the BC phase's windows.  With no BC phase or no
     ``finetune_lr``, ``learning_rate``."""
     lr = np.float32(cfg.learning_rate)
     if cfg.bc_episodes and cfg.finetune_lr:
-        bc_windows = cfg.bc_episodes * max(1, cfg.episode_len
-                                           // cfg.batch_size)
-        if updates >= bc_windows:
+        if bc_updates is None:
+            bc_updates = cfg.bc_episodes * max(1, cfg.episode_len
+                                               // cfg.batch_size)
+        if updates >= bc_updates:
             lr = np.float32(cfg.finetune_lr / cfg.learning_rate) * lr
     return float(lr)
 

@@ -177,12 +177,15 @@ def handle_modes(cfg: Config, make_state: Callable, train: Callable,
     state, writer, ckpt)`` runs the train loop; ``validate(cfg, ctx,
     state) -> (reward, info, state)`` runs one greedy validation
     episode and returns the advanced state.  --render is not ported."""
+    if cfg.render:
+        raise NotImplementedError("--render is not ported yet (ROADMAP "
+                                  "queue 1, item 10)")
     if cfg.restore:
         # settings.json supplies the defaults; a field given explicitly
         # on the command line, or differing from the dataclass default,
         # wins over the snapshot
         defaults = Config()
-        explicit = explicit_cli_flags()
+        explicit = explicit_cli_flags(cfg)
         overrides = {f.name: getattr(cfg, f.name)
                      for f in dataclasses.fields(Config)
                      if f.name in explicit

@@ -1,11 +1,12 @@
 """Device-resident experience replay (counterpart of
-``traffic_env_tpu/algorithms/replay.py:FrameReplay``; ``EpisodeReplay``
-for the recurrent learners is not ported yet).
+``traffic_env_tpu/algorithms/replay.py``): ``FrameReplay`` for qlearn,
+``EpisodeReplay`` of whole episodes for qrnn.
 
 The buffers are tensors on the learner's device, written in place.  The
 insert counters ``filled`` and ``cursor`` are host integers: they
-advance by one row per agent step whatever the data, so the learner's
-"replay is full" gate is a Python ``if`` that never waits on the device.
+advance by one row per agent step, or by the episodes of one insert,
+whatever the data, so the learner's "replay is full" gate is a Python
+``if`` that never waits on the device.
 """
 
 from __future__ import annotations
@@ -120,3 +121,96 @@ class FrameReplay:
             getattr(self, name).copy_(sd[name])
         self.filled, self.cursor = int(sd["filled"]), int(sd["cursor"])
         self.k = int(sd["k"])
+
+
+@dataclasses.dataclass
+class EpisodeReplay:
+    """Episode-level replay for the recurrent learner: whole episodes
+    with their real lengths in a ring of ``size`` slots; sampling draws
+    one contiguous trace of up to ``n_exp`` steps from each of ``n_ep``
+    episodes."""
+    s: torch.Tensor       # f32 (N, T + 1, obs_dim) observations
+    a: torch.Tensor       # i32 (N, T, act_dim)
+    r: torch.Tensor       # f32 (N, T, reward_size)
+    nd: torch.Tensor      # f32 (N, T) 1 - done
+    lens: torch.Tensor    # i32 (N,) steps of each stored episode
+    filled: int = 0       # episodes inserted, saturating at N
+    cursor: int = 0       # ring write position (wraps mod N)
+
+    @classmethod
+    def create(cls, size: int, episode_len: int, obs_dim: int,
+               act_dim: int, reward_size: int, device="cuda"):
+        z = lambda *shape, dt=torch.float32: torch.zeros(
+            shape, dtype=dt, device=device)
+        return cls(s=z(size, episode_len + 1, obs_dim),
+                   a=z(size, episode_len, act_dim, dt=torch.int32),
+                   r=z(size, episode_len, reward_size),
+                   nd=z(size, episode_len),
+                   lens=z(size, dt=torch.int32))
+
+    @property
+    def size(self) -> int:
+        return self.s.shape[0]
+
+    def add_episodes(self, s_seq, a_seq, r_seq, nd_seq, lengths
+                     ) -> "EpisodeReplay":
+        """Insert B whole episodes, episode-major (``s_seq`` holds T + 1
+        observations).  When B exceeds the ring, a rotating subset of
+        ``size`` of them is kept, ``(cursor * 13 + arange(size)) % B``;
+        the cursor advances by B, not by the kept count, so that the
+        subset rotates when B is a multiple of the size."""
+        b = orig_b = lengths.shape[0]
+        n = self.size
+        dev = self.s.device
+        if b > n:
+            sel = (self.cursor * 13 + torch.arange(n, device=dev)) % b
+            s_seq, a_seq, r_seq = s_seq[sel], a_seq[sel], r_seq[sel]
+            nd_seq, lengths = nd_seq[sel], lengths[sel]
+            b = n
+        slots = (self.cursor + torch.arange(b, device=dev)) % n
+        for buf, x in ((self.s, s_seq), (self.a, a_seq), (self.r, r_seq),
+                       (self.nd, nd_seq), (self.lens, lengths)):
+            buf[slots] = x.to(buf.dtype)
+        self.filled = min(self.filled + b, n)
+        self.cursor = (self.cursor + orig_b) % n
+        return self
+
+    def sample_traces(self, generator: torch.Generator, n_ep: int,
+                      n_exp: int):
+        """Draws the episodes ``i`` (uniform over the ring) and a float32
+        uniform for each trace's start, then :meth:`sample_traces_at`."""
+        dev = self.s.device
+        i = torch.randint(0, self.size, (n_ep,), generator=generator,
+                          device=dev)
+        u = torch.rand((n_ep,), generator=generator, device=dev)
+        return self.sample_traces_at(i, u, n_exp)
+
+    def sample_traces_at(self, i: torch.Tensor, u: torch.Tensor,
+                         n_exp: int):
+        """Episode ``i[k]``'s trace starts at ``int(u[k] * max(1, len -
+        n_exp + 1))`` and runs ``min(n_exp, len)`` steps; steps past it
+        read step 0 (zero padding by index), and ``s1`` is the step
+        after each.  Returns (s, a, r, nd, s1, sizes), time axis
+        ``n_exp``."""
+        i = i.long()
+        lens = self.lens[i]
+        sizes = torch.clamp(lens, max=n_exp)
+        max_start = torch.clamp(lens - n_exp + 1, min=1)
+        start = (u.to(torch.float32) * max_start.to(torch.float32)).to(
+            torch.int32)
+        offs = torch.arange(n_exp, device=i.device)[None, :]
+        valid = offs < sizes[:, None]
+        j = torch.where(valid, start[:, None] + offs, 0).long()
+        ii = i[:, None]
+        return (self.s[ii, j], self.a[ii, j], self.r[ii, j],
+                self.nd[ii, j], self.s[ii, j + 1], sizes)
+
+    def state_dict(self) -> dict:
+        return {"s": self.s, "a": self.a, "r": self.r, "nd": self.nd,
+                "lens": self.lens, "filled": self.filled,
+                "cursor": self.cursor}
+
+    def load_state_dict(self, sd: dict) -> None:
+        for name in ("s", "a", "r", "nd", "lens"):
+            getattr(self, name).copy_(sd[name])
+        self.filled, self.cursor = int(sd["filled"]), int(sd["cursor"])

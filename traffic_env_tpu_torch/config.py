@@ -19,14 +19,21 @@ from typing import Callable, Optional
 # Registered derivation callbacks: Config -> dict of field overrides.
 _DERIVATIONS: list[Callable[["Config"], dict]] = []
 
-# Flags the last parse_flags() call saw explicitly on the command line
-# (restore mode lets these override the settings.json snapshot even
-# when their value equals the dataclass default).
-_EXPLICIT_CLI: set = set()
+# The config the last parse_flags() call returned and the flags it saw
+# explicitly on the command line (restore mode lets these override the
+# settings.json snapshot even when their value equals the dataclass
+# default).
+_EXPLICIT_CLI: dict = {"config": None, "flags": set()}
 
 
-def explicit_cli_flags() -> set:
-    return set(_EXPLICIT_CLI)
+def explicit_cli_flags(cfg: "Config") -> set:
+    """The flags given explicitly on the command line that produced
+    ``cfg``: those of the last ``parse_flags`` call when ``cfg`` is the
+    config it returned, else none (a config built in code, e.g. by
+    another caller in the same process, has no command line)."""
+    if cfg != _EXPLICIT_CLI["config"]:
+        return set()
+    return set(_EXPLICIT_CLI["flags"])
 
 
 def add_derivation(fn: Callable[["Config"], dict]) -> Callable:
@@ -232,8 +239,8 @@ def parse_flags(argv=None) -> Config:
             parser.add_argument(name, type=typ, default=f.default)
     ns = parser.parse_args(argv)
     argv = sys.argv[1:] if argv is None else argv
-    _EXPLICIT_CLI.clear()
-    for tok in argv:
-        if tok.startswith("--"):
-            _EXPLICIT_CLI.add(tok[2:].split("=", 1)[0])
-    return Config(**vars(ns)).derive()
+    cfg = Config(**vars(ns)).derive()
+    _EXPLICIT_CLI["config"] = cfg
+    _EXPLICIT_CLI["flags"] = {tok[2:].split("=", 1)[0] for tok in argv
+                              if tok.startswith("--")}
+    return cfg

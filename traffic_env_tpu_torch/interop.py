@@ -13,7 +13,8 @@ included).
 a flax ``QNet`` or ``ConvQNet`` param tree into the port's state_dict,
 and ``a3cnet_state_dict_from_flax`` and
 ``convgru_a3c_state_dict_from_flax`` an ``A3CNet`` or ``ConvGRUA3CNet``
-tree.  ``load_teacher`` reads a distillation teacher: a ``.npz`` of a
+tree, ``dueling_qrnn_state_dict_from_flax`` and
+``polgrad_state_dict_from_flax`` a ``DuelingQRNN`` or ``PolGradNet`` tree.  ``load_teacher`` reads a distillation teacher: a ``.npz`` of a
 flax ``QNet``/``ConvQNet`` tree (``convert_teachers.py`` writes the
 repo's) or the port's own qlearn checkpoint directory.
 """
@@ -150,6 +151,20 @@ def convgru_a3c_state_dict_from_flax(params) -> dict:
     """A flax ``ConvGRUA3CNet`` tree (``ConvGRUCell_0`` with
     ``update_gate``, ``reset_gate``, ``candidate``; ``score_head``,
     ``value_head``) -> the port's ``ConvGRUA3CNet`` state_dict."""
+    return _named_state_dict_from_flax(params)
+
+
+def dueling_qrnn_state_dict_from_flax(params) -> dict:
+    """A flax ``DuelingQRNN`` tree (``Dense_0``, ``GRUCell_0``,
+    ``Dense_1``, the advantage head ``Dense_2``, the value head
+    ``Dense_3``) -> the port's ``DuelingQRNN`` state_dict."""
+    return _named_state_dict_from_flax(params)
+
+
+def polgrad_state_dict_from_flax(params) -> dict:
+    """A flax ``PolGradNet`` tree (``Dense_0``, ``GRUCell_0``,
+    ``Dense_1``, ``Dense_2``, ``score_layer``) -> the port's
+    ``PolGradNet`` state_dict."""
     return _named_state_dict_from_flax(params)
 
 

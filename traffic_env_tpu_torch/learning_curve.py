@@ -9,6 +9,10 @@ and compare with random, fixed and greedy on the same config.
         --bc_episodes=700 --finetune_lr=1e-4 --bc_anchor=1.0 --sil \\
         --entropy_coef=0 --start_eps=0.05 --episodes=3000 --out=curve.json
 
+``--trainer`` is a3c, qlearn, qrnn, polgrad_rnn or cem; for cem the
+curve's x axis is CEM iterations (``--episodes`` of them), each point
+the mean theta's return on the whole population batch.
+
 Runs on the card unless ``--platform=cpu``.  ``--max_seconds`` ends the
 training at the first validation point past that many seconds (the
 summary records the episodes reached).  After training, the best
@@ -72,7 +76,8 @@ def _card() -> str:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--trainer", default="a3c", choices=("a3c", "qlearn"))
+    p.add_argument("--trainer", default="a3c",
+                   choices=("a3c", "qlearn", "qrnn", "polgrad_rnn", "cem"))
     p.add_argument("--episodes", type=int, default=400)
     p.add_argument("--validate_every", type=int, default=25)
     p.add_argument("--max_seconds", type=float, default=0.0)
@@ -128,6 +133,8 @@ def main(argv=None):
 
     card = _card()
     bl = baseline_rewards(cfg)
+    if args.trainer == "cem":
+        return _cem_curve(args, cfg, card, bl)
     mod = importlib.import_module(f".algorithms.{args.trainer}",
                                   __package__)
     ctx, ts = mod.make_state(cfg)
@@ -178,11 +185,37 @@ def main(argv=None):
         "held_best_values": held,
         "beats_scripted_greedy_held": sum(held) / len(held) > greedy,
     }
+    return _emit(args, summary)
+
+
+def _emit(args, summary: dict) -> dict:
+    """Print the summary line and write it to ``--out``."""
     print(json.dumps(summary), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=2)
     return summary
+
+
+def _cem_curve(args, cfg: Config, card: str, bl: dict) -> dict:
+    """cem's curve: ``--episodes`` iterations, the mean theta validated
+    every ``--validate_every`` of them."""
+    from .algorithms import cem
+    t0 = time.perf_counter()
+    curve = cem.curve(cfg, n_iter=args.episodes,
+                      validate_every=args.validate_every)
+    tail = [v for _, v in curve[-5:]]
+    best = max(v for _, v in curve)
+    return _emit(args, {
+        "workload": f"{args.grid}x{args.grid} grid, "
+                    f"{cem.SAMPLE_SIZE * cfg.num_tries} envs (CEM "
+                    "population), trainer cem",
+        "card": card, "args": vars(args), "baselines": bl, "curve": curve,
+        "train_seconds": time.perf_counter() - t0, "best_greedy": best,
+        "beats_scripted_greedy": best > bl["greedy"],
+        "sustained_greedy": sum(tail) / len(tail),
+        "beats_scripted_greedy_sustained":
+            sum(tail) / len(tail) > bl["greedy"]})
 
 
 if __name__ == "__main__":

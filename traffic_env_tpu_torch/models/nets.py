@@ -9,6 +9,8 @@ grid in place of the dense layers, on the grid maps of
 ``obs_grid_channels``.  Their layers are ``nn.Linear`` and ``nn.Conv2d``
 (the JAX package leaves them to XLA; no kernel of its own), in float32:
 the trainer turns TF32 off (``algorithms/qlearn.py:make_state``).
+The recurrent nets (``A3CNet``, ``DuelingQRNN``, ``PolGradNet`` and the
+conv-GRU a3c policy) run flax's GRU cell over a time axis in a loop.
 """
 
 from __future__ import annotations
@@ -192,6 +194,21 @@ def _run_cell(n_steps, cell_step, carry, reset):
     return torch.stack(outs, 1), carry
 
 
+def _gru_trunk(net: nn.Module, obs: torch.Tensor, carry, reset):
+    """``relu(Dense_0(obs))`` through ``GRUCell_0`` over the time axis
+    of a batch-first (B, T, ...) obs, from ``carry`` (zeros when None):
+    the (B, T, hidden) outputs and the final carry."""
+    b, t = obs.shape[0], obs.shape[1]
+    x = torch.relu(net.Dense_0(obs.reshape(b, t, -1)))
+    if carry is None:
+        carry = net.initial_carry(b, obs.device)
+    cell = net.GRUCell_0
+    gates = cell.input_gates(x)
+    return _run_cell(
+        t, lambda i, h: cell.step(tuple(g[:, i] for g in gates), h),
+        carry, reset)
+
+
 class A3CNet(nn.Module):
     """The a3c actor-critic: batch-first obs (B, T, ...) and a carry
     (B, hidden) in; scores (B, T, n_actions), values (B, T, reward_size)
@@ -216,15 +233,71 @@ class A3CNet(nn.Module):
 
     def forward(self, obs: torch.Tensor, carry: torch.Tensor,
                 reset: torch.Tensor | None = None):
-        b, t = obs.shape[0], obs.shape[1]
-        x = torch.relu(self.Dense_0(obs.reshape(b, t, -1)))
-        cell = self.GRUCell_0
-        gates = cell.input_gates(x)
-        seq, carry = _run_cell(
-            t, lambda i, h: cell.step(tuple(g[:, i] for g in gates), h),
-            carry, reset)
+        seq, carry = _gru_trunk(self, obs, carry, reset)
         h0 = torch.relu(self.Dense_1(seq))
         return self.score_layer(h0), self.value_layer(h0), carry
+
+
+class DuelingQRNN(nn.Module):
+    """The qrnn double dueling DRQN: batch-first obs (B, T, ...) and a
+    carry (B, hidden), zeros when None, in; Q (B, T, n_actions,
+    n_choices) and the final carry out.  ``Dense_0`` (180, relu),
+    ``GRUCell_0``, ``Dense_1`` (180, relu) split 90/90 into the
+    advantage head ``Dense_2`` and the value head ``Dense_3``, both of
+    ``n_actions * n_choices`` outputs (the value head is not one scalar,
+    as in the JAX package); ``Q = val + adv - mean(adv)`` over the
+    choices.  ``reset`` as in ``A3CNet``."""
+
+    def __init__(self, obs_size: int, n_actions: int, n_choices: int = 2,
+                 hidden: int = 220, generator=None):
+        super().__init__()
+        self.n_actions, self.n_choices, self.hidden = (n_actions, n_choices,
+                                                       hidden)
+        heads = n_actions * n_choices
+        self.Dense_0 = _dense(obs_size, 180, generator)
+        self.GRUCell_0 = GRUCell(180, hidden, generator)
+        self.Dense_1 = _dense(hidden, 180, generator)
+        self.Dense_2 = _dense(90, heads, generator)
+        self.Dense_3 = _dense(90, heads, generator)
+
+    def initial_carry(self, batch: int, device=None) -> torch.Tensor:
+        return torch.zeros(batch, self.hidden, device=device)
+
+    def forward(self, obs: torch.Tensor, carry: torch.Tensor | None = None,
+                reset: torch.Tensor | None = None):
+        seq, carry = _gru_trunk(self, obs, carry, reset)
+        mid = torch.relu(self.Dense_1(seq))
+        shape = tuple(mid.shape[:2]) + (self.n_actions, self.n_choices)
+        adv = self.Dense_2(mid[..., :90]).reshape(shape)
+        val = self.Dense_3(mid[..., 90:]).reshape(shape)
+        return val + adv - torch.mean(adv, dim=-1, keepdim=True), carry
+
+
+class PolGradNet(nn.Module):
+    """The polgrad_rnn policy: batch-first obs (B, T, ...) and a carry
+    (B, hidden), zeros when None, in; Bernoulli scores (B, T, n_actions)
+    and the final carry out.  ``Dense_0`` (200, relu), ``GRUCell_0``,
+    ``Dense_1`` and ``Dense_2`` (200, relu), ``score_layer``.  ``reset``
+    as in ``A3CNet``."""
+
+    def __init__(self, obs_size: int, n_actions: int, hidden: int = 250,
+                 generator=None):
+        super().__init__()
+        self.hidden = hidden
+        self.Dense_0 = _dense(obs_size, 200, generator)
+        self.GRUCell_0 = GRUCell(200, hidden, generator)
+        self.Dense_1 = _dense(hidden, 200, generator)
+        self.Dense_2 = _dense(200, 200, generator)
+        self.score_layer = _dense(200, n_actions, generator)
+
+    def initial_carry(self, batch: int, device=None) -> torch.Tensor:
+        return torch.zeros(batch, self.hidden, device=device)
+
+    def forward(self, obs: torch.Tensor, carry: torch.Tensor | None = None,
+                reset: torch.Tensor | None = None):
+        seq, carry = _gru_trunk(self, obs, carry, reset)
+        h1 = torch.relu(self.Dense_2(torch.relu(self.Dense_1(seq))))
+        return self.score_layer(h1), carry
 
 
 class ConvGRUCell(nn.Module):

@@ -28,6 +28,16 @@ Phases, one JSON line each:
    warm-up agent steps, then 120 agent steps timed best of 3, each
    ended by a host fetch.  Env-steps/s, and the kernel's launch count,
    which must equal the windows run.
+   ticks: the per-tick env (``make_batched_env(core="fast")``, plain
+   torch ticks) against the CUDA window env from one reset state with
+   the same actions, 120 lazy-autoreset agent steps: 3x3 at 4096 envs
+   with device Poisson spawns, the same in validate mode (light times,
+   trip histogram), and --exact at 256 envs with its schedule rows.
+   Every step's obs, reward and done and the final state bit-equal; the
+   window env launches one window a step, the per-tick env none.  The
+   ms of an agent step on each core (CUDA events), of
+   ``step_autoreset_lazy_ticks`` and the bytes of its tick stack, and
+   the torch ops a per-tick step dispatches (torch.profiler).
 6. telemetry_parity: the validate-mode variant of the kernel (light
    times, trip-time histogram) against its plain version on the card,
    3x3 grid, 4096 envs, 50 windows, autoreset on, device spawns and
@@ -104,6 +114,12 @@ Phases, one JSON line each:
    (agent-step ms), and greedy beside qlearn's validation rewards:
    counted to each env's first done as qlearn counts, and as the bar
    of the JAX package's learning_curve.py (greedy on qlearn's config).
+   render: --render through ``run_alg`` at 3x3, 4096 envs, 60 s
+   episodes (12 agent steps): qlearn restored from one training episode
+   in validate mode, and greedy, each with --render on the window core
+   (12 frames; launches == windows) and with --render_ticks on the
+   rebuilt per-tick core (120 frames); PNG frames where matplotlib
+   imports, else terminal frames into a buffer.
 10. k2: ``random_rollout`` through ``make_batched_env(archetypes=TWO)``
    at 4096 envs, device spawns, 120 timed agent steps: env-steps/s, the
    truck share of the cars on the roads, launches == windows.
@@ -2111,6 +2127,193 @@ def parent_e2e_phase(card, parent_dir):
     return row
 
 
+def state_bytes(sim):
+    return sum(v.numel() * v.element_size() for v in vars(sim).values()
+               if v is not None)
+
+
+def run_steps(env, fn_name, state, actions):
+    """``fn_name`` of ``env`` over ``actions`` from a clone of ``state``,
+    the outputs kept (obs, reward, done, light times), timed by CUDA
+    events: (state, outputs, ms a step)."""
+    state = state.clone()
+    outs = []
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    e0.record()
+    for a in actions:
+        state, obs, rew, done, info = getattr(env, fn_name)(state, a)[:5]
+        outs.append((obs, rew, done, info["light_times"] if info else None))
+    e1.record()
+    torch.cuda.synchronize()
+    return state, outs, e0.elapsed_time(e1) / len(actions)
+
+
+def torch_ops(fn):
+    """The top-level torch ops that ``fn()`` dispatches (aten ops not
+    called from another aten op), counted by torch.profiler on the
+    host."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(1 for e in prof.events() if e.name.startswith("aten::")
+               and (e.cpu_parent is None
+                    or not e.cpu_parent.name.startswith("aten::")))
+
+
+def ticks_case(card, name, cfg, wenv, fenv, variant, n_steps=120):
+    """The per-tick env (``core="fast"``) and the CUDA window env from
+    one reset state with the same actions: every step's obs, reward,
+    done (and light times) and the final state bit-equal; the window's
+    launches equal its steps, the per-tick core launches none.  Then
+    the ms of an agent step on each core, of ``step_autoreset_lazy_ticks``,
+    the bytes of its tick stack and the torch ops of a per-tick step."""
+    I, B = wenv.n_intersections, wenv.n_envs
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    s0, _ = wenv.reset(wenv.init(gen))
+    actions = [torch.randint(0, 2, (I, B), dtype=torch.int32, generator=gen,
+                             device="cuda") for _ in range(n_steps)]
+    window_cuda.launches.clear()
+    ws, wouts, w_ms = run_steps(wenv, "step_autoreset_lazy", s0, actions)
+    check_launches(f"ticks_{name}_window", {variant: n_steps})
+    window_cuda.launches.clear()
+    fs, fouts, f_ms = run_steps(fenv, "step_autoreset_lazy", s0, actions)
+    check_launches(f"ticks_{name}_per_tick", {})
+    for t, (wo, fo) in enumerate(zip(wouts, fouts)):
+        for what, u, v in zip(("obs", "reward", "done", "light_times"),
+                              wo, fo):
+            if (u is None) != (v is None) or \
+                    (u is not None and not torch.equal(u, v)):
+                raise SmokeFailure(f"ticks {name}: {what} differs at step "
+                                   f"{t}")
+    diffs = {k: leaf_diff(v, getattr(fs.sim, k))[1]
+             for k, v in sim_leaves(ws.sim).items()
+             if not leaf_diff(v, getattr(fs.sim, k))[0]}
+    if diffs:
+        raise SmokeFailure(f"ticks {name}: final state differs {diffs}")
+    n_tick_steps = 10
+    _, touts, ticks_ms = run_steps(fenv, "step_autoreset_lazy_ticks", ws,
+                                   actions[:n_tick_steps])
+    st, *_, ticks = fenv.step_autoreset_lazy_ticks(ws.clone(), actions[0])
+    s1 = ws.clone()
+    n_ops = torch_ops(lambda: fenv.step_autoreset_lazy(s1, actions[0]))
+    if ticks.cars.shape[0] != cfg.light_iterations:
+        raise SmokeFailure(f"ticks {name}: the stack holds "
+                           f"{ticks.cars.shape[0]} ticks")
+    row = {"phase": "ticks", "case": name, "card": card, "envs": B,
+           "agent_steps": n_steps, "dones": int(sum(int(o[2].sum())
+                                                    for o in wouts)),
+           "window_step_ms": w_ms, "per_tick_step_ms": f_ms,
+           "per_tick_over_window": f_ms / w_ms,
+           "per_tick_torch_ops_per_step": n_ops,
+           "per_tick_host_us_per_op": f_ms * 1e3 / n_ops,
+           "lazy_ticks_step_ms": ticks_ms,
+           "tick_stack_bytes": state_bytes(ticks),
+           "state_bytes": state_bytes(st.sim),
+           "launches": PATH_LAUNCHES[f"ticks_{name}_window"],
+           "bit_equal": True}
+    emit(row)
+    return row
+
+
+def ticks_phase(card):
+    """The per-tick env against the window env on the card: 3x3 at 4096
+    envs with device Poisson spawns and lazy autoreset for one episode
+    (120 agent steps), the same in validate mode (light times and the
+    trip histogram), and the --exact schedule mode at 256 envs with its
+    rows a tick."""
+    topo = GridRoad(3, 3, 250.0)
+    cfg = bench_config(topo)
+    rows = []
+    for name, ccfg, variant in ((f"device_{N_ENVS}", cfg, "window"),
+                                (f"validate_{N_ENVS}",
+                                 cfg.replace(mode="validate"),
+                                 "window_telemetry")):
+        wenv = make_batched_env(topo, ccfg, N_ENVS, device="cuda")
+        fenv = make_batched_env(topo, ccfg, N_ENVS, device="cuda",
+                                core="fast")
+        rows.append(ticks_case(card, name, ccfg, wenv, fenv, variant))
+    ecfg = Config(trainer="random", history=1, exact=True, num_envs=256,
+                  platform="cpu" if DEVICE == "cpu" else "").derive()
+    # the per-tick env reads the window env's schedule from the state
+    _, _, fenv = build_env(ecfg, core="fast")
+    _, ecfg, wenv = build_env(ecfg)
+    rows.append(ticks_case(card, "exact_256", ecfg, wenv, fenv, "window"))
+    return rows
+
+
+def render_phase(card):
+    """--render through run_alg at 3x3, 4096 envs, 60 s episodes (12
+    agent steps): qlearn restored from one training episode in validate
+    mode, and the greedy baseline, each once with --render on the window
+    core (a frame an agent step; launches == windows) and once with
+    --render_ticks on the rebuilt per-tick core (a frame a tick).  PNG
+    frames where matplotlib imports, else terminal frames into a
+    buffer."""
+    png = importlib.util.find_spec("matplotlib") is not None
+    renderer = "EpisodeRenderer" if png else "TermRenderer"
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_render_")
+    rows = []
+    try:
+        qdir = os.path.join(logdir, "q")
+        run_alg(qlearn_config(total_episodes=1, episode_secs=60,
+                              validate_rate=1000, save_rate=1000,
+                              logdir=qdir))
+        runs = []
+        for ticks in (False, True):
+            runs.append(("qlearn", qlearn_config(
+                mode="validate", restore=True, total_episodes=1,
+                episode_secs=60, render=True, render_ticks=ticks,
+                render_live=not png, logdir=qdir)))
+            runs.append(("greedy", greedy_config(
+                total_episodes=1, episode_secs=60, render=True,
+                render_ticks=ticks, render_live=not png,
+                logdir=os.path.join(logdir, "g"))))
+        for trainer, cfg in runs:
+            ticks = cfg.render_ticks
+            if trainer == "qlearn":
+                # make_state's reset, the rendered episode's reset, the
+                # validation episode's reset and steps
+                reset_w = 1 + cfg.warmup_lights + cfg.history - 1
+                windows = 3 * reset_w + cfg.episode_len
+            else:
+                reset_w = 1 + cfg.warmup_lights
+                windows = 2 * reset_w + cfg.episode_len
+            if not ticks:
+                windows += cfg.episode_len
+            path = f"render_{trainer}" + ("_ticks" if ticks else "")
+            window_cuda.launches.clear()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                run_alg(cfg)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            text = out.getvalue()
+            frames = [int(n) for n in re.findall(r"^rendered (\d+) frames",
+                                                 text, re.M)]
+            want = cfg.episode_len * (cfg.light_iterations if ticks else 1)
+            drawn = len([f for f in os.listdir(os.path.join(
+                cfg.logdir, "render")) if f.endswith(".png")]) if png \
+                else text.count("\x1b[H")
+            row = {"phase": "render", "run": path, "card": card,
+                   "envs": N_ENVS, "renderer": renderer,
+                   "frames": frames, "frames_drawn": drawn,
+                   "frames_expected": want, "seconds_with_setup": seconds,
+                   "launches": dict(window_cuda.launches),
+                   "windows_run": windows}
+            emit(row)
+            check_launches(path, {"window_telemetry": windows})
+            if frames != [want] or drawn != want:
+                raise SmokeFailure(f"{path}: {frames} frames reported, "
+                                   f"{drawn} drawn, {want} expected")
+            rows.append(row)
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    return rows
+
+
 def kernel_entry(name, replaces, main_path, parity_rows, timing):
     """One entry of the kernels line: launches on the variant's main
     path and on every path, the parity cases' largest error, the times
@@ -2165,6 +2368,7 @@ def main():
     exact_parity_phase(args.exact_envs)
     topo = GridRoad(3, 3, 250.0)
     benv, state, launches, best = bench_phase(card)
+    tick_rows = ticks_phase(card)
     tparity = telemetry_parity_phase()
     vparity = variant_parity_phase()
     gparity = geometry_parity_phase()
@@ -2172,6 +2376,7 @@ def main():
     greedy_rows, gtime, greedy_run = baselines_phase(card, {
         "qlearn_train_validation_rewards": train_row["validation_rewards"],
         "qlearn_validate_rewards": val_row["rewards"]})
+    render_phase(card)
     exact_rows = exact_qlearn_phase(card, args.exact_envs)
     conv_rows = conv_qlearn_phase(card)
     a3c_phase(card, "a3c", {})
@@ -2226,6 +2431,9 @@ def main():
                        "td_ms_per_episode", "update_ms_per_episode",
                        "window_share_of_rollout_step",
                        "window_share_of_step") if k in r},
+          **{f"ticks_{r['case']}_{k}": r[k] for r in tick_rows
+             for k in ("window_step_ms", "per_tick_step_ms",
+                       "lazy_ticks_step_ms", "tick_stack_bytes")},
           "ms_over_core": {r["variant"]: r["ms"] / core["ms"]
                            for r in (tel, decel, regular, k2)}})
 

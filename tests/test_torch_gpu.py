@@ -434,3 +434,40 @@ def test_qrnn_td_grads_on_card_match_cpu(no_tf32):
     for k, w in out["cpu"][1].items():
         assert float((out["cuda"][1][k] - w).abs().max()) <= \
             1e-4 * float(w.abs().max()), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["train", "validate"])
+def test_per_tick_env_matches_window_kernel_on_card(mode):
+    """On a CUDA card: the per-tick env (plain torch ticks) and the
+    window kernel's env from one cloned state, 12 lazy steps of the same
+    actions on 3x3 at 512 envs: obs, reward, done, light times and every
+    state leaf bit-equal; no kernel launch on the per-tick core."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from traffic_env_tpu_torch.envs import make_batched_env
+    from traffic_env_tpu_torch.ops import window_cuda
+    topo = GridRoad(3, 3, 250.0)
+    cfg = derive_spawn_rate(Config(trainer="random", history=1,
+                                   mode=mode).derive(), topo.open_sides(0))
+    wenv = make_batched_env(topo, cfg, 512)
+    fenv = make_batched_env(topo, cfg, 512, core="fast")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    s0, _ = wenv.reset(wenv.init(gen))
+    ws, fs = s0.clone(), s0.clone()
+    for _ in range(12):
+        a = torch.randint(0, 2, (9, 512), dtype=torch.int32, generator=gen,
+                          device="cuda")
+        ws, wo, wr, wd, wi = wenv.step_autoreset_lazy(ws, a)
+        window_cuda.launches.clear()
+        fs, fo, fr, fd, fi, ticks = fenv.step_autoreset_lazy_ticks(fs, a)
+        assert not window_cuda.launches
+        for u, v in ((wo, fo), (wr, fr), (wd, fd)):
+            assert torch.equal(u, v)
+        if mode == "validate":
+            assert torch.equal(wi["light_times"], fi["light_times"])
+        for k, v in vars(ws.sim).items():
+            if v is not None:
+                assert torch.equal(v, getattr(fs.sim, k)), k
+    assert ticks.cars.shape[0] == cfg.light_iterations

@@ -463,16 +463,16 @@ def test_run_alg_trains_validates_and_restores(tmp_path):
 
 def test_default_platform_needs_a_card():
     """Without --platform=cpu qrnn runs on the card: without one,
-    make_state raises instead of falling back; --render raises with its
-    ROADMAP item."""
+    make_state raises instead of falling back, with --render too (which
+    is ported: tests/test_torch_render.py)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     cfg = parse_flags(["--trainer=qrnn", "--num_envs=4"])
     assert cfg.platform == ""
     with pytest.raises(RuntimeError, match="no CUDA device"):
         qrnn.make_state(cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        run_alg(Config(trainer="qrnn", render=True, platform="cpu").derive())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        qrnn.make_state(cfg.replace(render=True).derive())
 
 
 def test_cli_flags_apply_only_to_their_own_config(tmp_path):

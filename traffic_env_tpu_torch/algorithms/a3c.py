@@ -26,8 +26,7 @@ agent steps on the device; the per-window statistics stay there and
 are fetched once an episode.  The nets run in float32 (TF32 off).
 Random draws come from the state's ``torch.Generator``, not threefry
 keys, so only draw-free paths (greedy, BC) match the JAX package step
-for step.  ``--render`` (the JAX package's ``policy_step``) is not
-ported.
+for step.  ``--render`` draws a greedy episode of ``policy_step``.
 """
 
 from __future__ import annotations
@@ -401,5 +400,20 @@ def validate(cfg: Config, ctx: A3CCtx, ts: A3CTS):
     return float(reward), info, ts
 
 
+def policy_step(ctx: A3CCtx, ts: A3CTS):
+    """The greedy policy of ``--render``: ``(obs (..., B), carry) ->
+    (action (I, B), carry)``, the carry from zeros."""
+    B = ctx.benv.n_envs
+
+    def step(obs, carry):
+        if carry is None:
+            carry = torch.zeros_like(ts.gru)
+        with torch.no_grad():
+            scores, _, carry = ts.net(
+                torch.movedim(obs, -1, 0).reshape(B, -1)[:, None], carry)
+        return sigmoid_greedy(scores[:, 0]).T.contiguous(), carry
+    return step
+
+
 def run(cfg: Config):
-    return handle_modes(cfg, make_state, train, validate)
+    return handle_modes(cfg, make_state, train, validate, policy_step)

@@ -21,7 +21,7 @@ import torch
 
 from ..config import Config
 from ..envs.fast_core import cars_on_roads, cars_per_road
-from .common import build_env, validate_telemetry
+from .common import build_env, render_episode, validate_telemetry
 from ..utils.stats import forever, print_running_stats, write_data
 
 F32 = torch.float32
@@ -116,9 +116,6 @@ def run(cfg: Config, trainer: str | None = None):
     name = trainer or cfg.trainer
     if name in RAW_PHASE:
         cfg = cfg.replace(learn_switch=False)
-    if cfg.render:
-        raise NotImplementedError("--render is not ported yet (ROADMAP "
-                                  "queue 1, item 10)")
     topo, cfg, benv = build_env(cfg)
     policy = make_policies(cfg, benv, topo)[name]
     _, run_one = episode_runner(cfg, benv, policy)
@@ -131,6 +128,19 @@ def run(cfg: Config, trainer: str | None = None):
     # episode refreshes it, as in the JAX package: past that window's
     # ticks (~2 episodes) the schedule places no car
     state = {"env": benv.init(init_gen)}
+    if cfg.render:
+        # one episode drawn from a reset, then the stats loop goes on
+        # from where it ended
+        env, obs = benv.reset(state["env"])
+        held = torch.zeros((benv.n_intersections, benv.n_envs), dtype=I32,
+                           device=dev)
+
+        def act(t, env, obs):
+            nonlocal held
+            a, held = policy(t, gen, env, held)
+            return a
+
+        state["env"] = render_episode(cfg, benv, env, obs, act)
 
     def one_episode():
         # the window adds to trip_hist in place: keep a copy

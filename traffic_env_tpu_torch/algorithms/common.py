@@ -1,9 +1,10 @@
 """Shared training lifecycle (counterpart of
 ``traffic_env_tpu/algorithms/common.py``): the env for a config, the
 ``--exact`` arrival stream and its refresh, the imitation expert of the
-sigmoid-policy learners, the train/validate dispatch, the logdir (wipe
-and settings.json on a fresh run, restore on --restore), checkpoints,
-and validation bookkeeping with the validate-mode telemetry.
+sigmoid-policy learners, the train/validate dispatch with ``--render``,
+the logdir (wipe and settings.json on a fresh run, restore on
+--restore), checkpoints, and validation bookkeeping with the
+validate-mode telemetry.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ..envs.fast_core import cars_per_road
 from ..envs.rollout import BatchedEnv, make_batched_env
 from ..envs.spawn import ScheduleStream
 from ..interop import load_teacher, schedule_from_arrays
+from ..render import make_renderer
 from ..topology import GridRoad
 from ..utils.checkpoint import (Checkpointer, load_settings, remkdir,
                                 snapshot_settings)
@@ -67,14 +69,15 @@ def exact_max_per_tick(cfg: Config) -> int:
     return max(8, math.ceil(math.log(1e-12) / math.log(p0)))
 
 
-def build_env(cfg: Config, n_envs: int | None = None
+def build_env(cfg: Config, n_envs: int | None = None, core: str = "window"
               ) -> tuple[GridRoad, Config, BatchedEnv]:
-    """The batched traffic env for ``cfg`` on ``device_of(cfg)``: the
-    grid with its entry mask, the spawn rate derived from its open
-    sides, and device Poisson spawns, or with ``--exact`` the
-    reference's per-env MT19937 arrival streams (seeds ``cfg.seed +
-    i``), served by a host ``ScheduleStream`` to the window's schedule
-    mode, ``exact_max_per_tick`` rows a tick."""
+    """The batched traffic env for ``cfg`` on ``device_of(cfg)`` and
+    ``core`` ("window", or "fast" for the per-tick core): the grid with
+    its entry mask, the spawn rate derived from its open sides, and
+    device Poisson spawns, or with ``--exact`` the reference's per-env
+    MT19937 arrival streams (seeds ``cfg.seed + i``), served by a host
+    ``ScheduleStream`` to the schedule mode, ``exact_max_per_tick`` rows
+    a tick."""
     if cfg.env_name == "cartpole":
         raise NotImplementedError("the CartPole fixture is not ported yet "
                                   "(ROADMAP queue 1, item 10)")
@@ -88,12 +91,13 @@ def build_env(cfg: Config, n_envs: int | None = None
     n = n_envs or cfg.num_envs
     if not cfg.exact:
         return topo, cfg, make_batched_env(topo, cfg, n,
-                                           device=device_of(cfg))
+                                           device=device_of(cfg), core=core)
     k = exact_max_per_tick(cfg)
     stream = ScheduleStream(topo, cfg, [cfg.seed + i for i in range(n)],
                             exact_chunk_ticks(cfg), max_per_tick=k)
     benv = make_batched_env(topo, cfg, n, on_device_spawns=False,
-                            max_spawns_per_tick=k, device=device_of(cfg))
+                            max_spawns_per_tick=k, device=device_of(cfg),
+                            core=core)
     return topo, cfg, attach_schedule_stream(benv, stream)
 
 
@@ -170,16 +174,16 @@ def make_expert_action(cfg: Config, benv: BatchedEnv, topo: GridRoad):
 
 
 def handle_modes(cfg: Config, make_state: Callable, train: Callable,
-                 validate: Callable):
+                 validate: Callable, policy_step: Callable | None = None):
     """Lifecycle dispatch.  ``make_state(cfg) -> (ctx, state)`` builds
     the learner context (with the env as ``ctx.benv``) and initial train
     state (with the env state as ``state.env``); ``train(cfg, ctx,
     state, writer, ckpt)`` runs the train loop; ``validate(cfg, ctx,
     state) -> (reward, info, state)`` runs one greedy validation
-    episode and returns the advanced state.  --render is not ported."""
-    if cfg.render:
-        raise NotImplementedError("--render is not ported yet (ROADMAP "
-                                  "queue 1, item 10)")
+    episode and returns the advanced state; ``policy_step(ctx, state)``
+    returns the greedy policy ``(obs, carry) -> (action (I, B),
+    carry)`` that ``--render`` draws an episode of before the
+    validation episodes (``render_greedy``)."""
     if cfg.restore:
         # settings.json supplies the defaults; a field given explicitly
         # on the command line, or differing from the dataclass default,
@@ -206,6 +210,8 @@ def handle_modes(cfg: Config, make_state: Callable, train: Callable,
         if cfg.mode == "validate":
             state = _ensure_trip_hist(cfg, state)
     if cfg.mode == "validate":
+        if cfg.render and policy_step is not None:
+            render_greedy(cfg, ctx, state, policy_step)
         box = [state]
 
         def _one():
@@ -226,6 +232,52 @@ def handle_modes(cfg: Config, make_state: Callable, train: Callable,
         return train(cfg, ctx, state, writer, ckpt)
     finally:
         writer.close()
+
+
+def render_episode(cfg: Config, benv: BatchedEnv, env, obs, act):
+    """``--render``: one episode of ``episode_len`` lazy-autoreset steps
+    from the reset ``(env, obs)``, drawing env lane 0 after every agent
+    step, or with ``--render_ticks`` after every tick.  The window core
+    keeps its ticks on the card, so with ``--render_ticks`` the episode
+    runs on the per-tick core, rebuilt for ``cfg`` on the same device.
+    ``act(t, env, obs) -> (I, B)`` actions.  Returns the env state after
+    the episode."""
+    topo = GridRoad(cfg.grid_m, cfg.grid_n, cfg.road_length)
+    rend = make_renderer(cfg, topo)
+    ticks_mode = cfg.render_ticks
+    if ticks_mode and benv.step_autoreset_lazy_ticks is None:
+        _, _, benv = build_env(cfg, benv.n_envs, core="fast")
+    step = benv.step_autoreset_lazy_ticks if ticks_mode \
+        else benv.step_autoreset_lazy
+    for t in range(cfg.episode_len):
+        a = act(t, env, obs)
+        if ticks_mode:
+            env, obs, _, _, _, ticks = step(env, a)
+            rend.add_ticks(ticks)
+        else:
+            env, obs, _, _, _ = step(env, a)
+            rend.add(env.sim)
+    gif = rend.finish(duration_ms=50 if ticks_mode else 250)
+    print(f"rendered {len(rend.frames)} frames to {rend.outdir}"
+          + (f" ({gif})" if gif else ""))
+    return env
+
+
+def render_greedy(cfg: Config, ctx, state, policy_step: Callable):
+    """--render for the learners: a greedy episode of ``policy_step(ctx,
+    state)`` from a full reset of a copy of the training env (the
+    window writes its state in place; the JAX package's reset is
+    pure)."""
+    step_pi = policy_step(ctx, state)
+    box = [None]
+
+    def act(t, env, obs):
+        a, box[0] = step_pi(obs, box[0])
+        return a
+
+    env, obs = ctx.benv.reset(state.env.clone())
+    with torch.no_grad():
+        render_episode(cfg, ctx.benv, env, obs, act)
 
 
 def validation_hook(cfg: Config, ckpt: Checkpointer, writer: MetricWriter,

@@ -21,8 +21,8 @@ rate from optimizer update ``max(1, bc_episodes // batch_size)`` on.
 The episode is a Python loop on the device; its statistics are fetched
 once.  Random draws come from the state's ``torch.Generator``, so only
 draw-free paths (greedy, BC) match the JAX package step for step.  The
-net runs in float32 (TF32 off).  ``--render`` (the JAX package's
-``policy_step``) is not ported.
+net runs in float32 (TF32 off).  ``--render`` draws a greedy episode of
+``policy_step``.
 """
 
 from __future__ import annotations
@@ -324,5 +324,20 @@ def validate(cfg: Config, ctx: PGCtx, ts: PGTS):
     return float(reward), info, ts
 
 
+def policy_step(ctx: PGCtx, ts: PGTS):
+    """The greedy policy of ``--render``: ``(obs (..., B), carry) ->
+    (action (I, B), carry)``, the carry from zeros."""
+    B, dev = ctx.benv.n_envs, ctx.benv.device
+
+    def step(obs, carry):
+        if carry is None:
+            carry = ts.net.initial_carry(B, dev)
+        with torch.no_grad():
+            scores, carry = ts.net(
+                torch.movedim(obs, -1, 0).reshape(B, -1)[:, None], carry)
+        return sigmoid_greedy(scores[:, 0]).T.contiguous(), carry
+    return step
+
+
 def run(cfg: Config):
-    return handle_modes(cfg, make_state, train, validate)
+    return handle_modes(cfg, make_state, train, validate, policy_step)

@@ -35,6 +35,7 @@ import torch
 
 from ..config import Config
 from ..envs.env import EnvState
+from ..envs.extra_wrappers import ungspace_actions
 from ..envs.structs import SimState
 from ..models.nets import ConvQNet, QNet
 from .common import (build_env, handle_modes, refresh_schedule,
@@ -113,8 +114,7 @@ def make_fns(cfg: Config, benv) -> QLearnFns:
     if cfg.single_agent:
         # the integer choice decodes to the env's I phase bits, and the
         # learner's reward is the mean over intersections
-        bits = torch.arange(I, device=dev)
-        env_action = lambda a: (a[:, :1].long() >> bits) & 1   # (B, I)
+        env_action = ungspace_actions(I)[1]                    # (B, I)
         learn_reward = lambda r_bf: r_bf.mean(-1, keepdim=True)
     else:
         env_action = lambda a: a
@@ -324,5 +324,19 @@ def validate(cfg: Config, ctx: QLearnCtx, ts: QLearnTS):
     return float(reward), info, ts
 
 
+def policy_step(ctx: QLearnCtx, ts: QLearnTS):
+    """The greedy policy of ``--render`` (``common.render_greedy``):
+    ``(obs (..., B), carry) -> (action (I, B), carry)``."""
+    decode = ungspace_actions(ctx.benv.n_intersections)[1] \
+        if ctx.cfg.single_agent else (lambda a: a)
+
+    def step(obs, carry):
+        with torch.no_grad():
+            q = ts.main(torch.movedim(obs, -1, 0))
+        a = decode(torch.argmax(q, dim=-1).to(I32))
+        return a.T.contiguous(), carry
+    return step
+
+
 def run(cfg: Config):
-    return handle_modes(cfg, make_state, train, validate)
+    return handle_modes(cfg, make_state, train, validate, policy_step)

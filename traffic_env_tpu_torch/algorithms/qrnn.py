@@ -20,7 +20,7 @@ bits, with the mean reward, as qlearn does.  The episode is a Python
 loop on the device; its statistics are fetched once.  Random draws come
 from the state's ``torch.Generator``, so only the greedy episode
 matches the JAX package step for step.  The nets run in float32 (TF32
-off).  ``--render`` (the JAX package's ``policy_step``) is not ported.
+off).  ``--render`` draws a greedy episode of ``policy_step``.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import torch
 
 from ..config import Config
 from ..envs.env import EnvState
+from ..envs.extra_wrappers import ungspace_actions
 from ..envs.structs import SimState
 from ..models.nets import DuelingQRNN
 from .common import (build_env, handle_modes, refresh_schedule,
@@ -104,8 +105,7 @@ def make_fns(cfg: Config, benv) -> QRnnFns:
     if cfg.single_agent:
         # the integer choice decodes to the env's I phase bits, and the
         # learner's reward is the mean over intersections
-        bits = torch.arange(I, device=dev)
-        env_action = lambda a: (a[:, :1].long() >> bits) & 1   # (B, I)
+        env_action = ungspace_actions(I)[1]                    # (B, I)
         learn_reward = lambda r_bf: r_bf.mean(-1, keepdim=True)
     else:
         env_action = lambda a: a
@@ -294,5 +294,23 @@ def validate(cfg: Config, ctx: QRnnCtx, ts: QRnnTS):
     return float(reward), info, ts
 
 
+def policy_step(ctx: QRnnCtx, ts: QRnnTS):
+    """The greedy policy of ``--render``: ``(obs (..., B), carry) ->
+    (action (I, B), carry)``, the carry from zeros."""
+    B, dev = ctx.benv.n_envs, ctx.benv.device
+    decode = ungspace_actions(ctx.benv.n_intersections)[1] \
+        if ctx.cfg.single_agent else (lambda a: a)
+
+    def step(obs, carry):
+        if carry is None:
+            carry = ts.main.initial_carry(B, dev)
+        with torch.no_grad():
+            q, carry = ts.main(torch.movedim(obs, -1, 0).reshape(B, -1)
+                               [:, None], carry)
+        a = decode(torch.argmax(q[:, 0], dim=-1).to(I32))
+        return a.T.contiguous(), carry
+    return step
+
+
 def run(cfg: Config):
-    return handle_modes(cfg, make_state, train, validate)
+    return handle_modes(cfg, make_state, train, validate, policy_step)

@@ -16,9 +16,10 @@ decel_penalty shaping, and validate mode's trip telemetry
 (``emit_trips``: the window's light times and the trip-time histogram of
 the cars that leave the map).
 
+The plain version runs the per-tick core of ``envs/fast_core.py``.
 Float discipline, shared with the kernel: every product feeding an add
-is kept a separate rounding (``_nn``/``_fin`` clamps, no FMA in the
-kernel), pow(., 4) is two squarings, the ``(x - l) - s0`` chains round
+is kept a separate rounding (``_nn``/``_fin`` clamps in the core, no FMA
+in the kernel), pow(., 4) is two squarings, the ``(x - l) - s0`` chains round
 twice, and rounding is half to even.
 """
 
@@ -31,9 +32,8 @@ import torch
 
 from .. import constants as C
 from ..config import Config
-from ..constants import RING
 from ..topology import GridRoad
-from .philox import Slots, draw_bits, uniform24
+from .philox import Slots
 
 # the largest archetype table the CUDA kernel takes (MAX_K in window.cu)
 MAX_K = 8
@@ -44,8 +44,6 @@ STATE_KEYS = ("x", "v", "w", "leading", "lastcar", "phase", "elapsed",
 
 F32 = torch.float32
 I32 = torch.int32
-FMAX = float(np.finfo(np.float32).max)
-INF = float("inf")
 MASK32 = 0xFFFFFFFF
 
 
@@ -66,14 +64,6 @@ def lazy_reset_phase(gtick, n_intersections: int) -> torch.Tensor:
     """The schedule-mode lazy-autoreset phase of each env (I, B) from
     its global tick (B,)."""
     return _hash_phase(torch.as_tensor(gtick), n_intersections)
-
-
-def _nn(p):
-    return torch.clamp(p, min=0.0)
-
-
-def _fin(p):
-    return torch.clamp(p, -FMAX, FMAX)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,382 +181,59 @@ def window_reference(spec: WindowSpec, d: dict, action: torch.Tensor,
                      autoreset: bool, trip_hist: torch.Tensor | None = None,
                      light: torch.Tensor | None = None,
                      spawn_ai: torch.Tensor | None = None):
-    """Plain PyTorch version of the window kernel: plane ops over
-    (R, RING, B) car planes, one tick at a time.  ``d`` holds the state
-    under STATE_KEYS, plus "ai" with a k > 1 table (updated in place);
-    ``action`` i32 (I, B); ``spawn_rows`` i32 (W, Ks, B) entry indices
-    (-1 = none) in schedule mode, None in device mode; ``spawn_ai`` i32
-    (W, Ks, B) the archetype of each schedule arrival (k > 1 schedule
-    mode; zeros when None); ``seed`` i32 (B,).  With
+    """Plain PyTorch version of the window kernel: W ticks of the
+    per-tick core (``envs/fast_core.py:run_ticks``) over (R, RING, B)
+    car planes.  ``d`` holds the state under STATE_KEYS, plus "ai" with
+    a k > 1 table (updated in place); ``action`` i32 (I, B);
+    ``spawn_rows`` i32 (W, Ks, B) entry indices (-1 = none) in schedule
+    mode, None in device mode; ``spawn_ai`` i32 (W, Ks, B) the archetype
+    of each schedule arrival (k > 1 schedule mode; zeros when None);
+    ``seed`` i32 (B,).  ``autoreset`` first empties and rephases the
+    lanes that are done (``fast_core.lazy_reset``).  With
     ``spec.emit_trips``, ``light`` f32 (I, B) receives the light times
     and the durations of the cars popped off exit roads are added to
-    ``trip_hist`` i32 (nb, B), both in place.  Returns
-    (acc_passed, rew_sum, last_rew, last_passed)."""
-    S, R, Rt, I = RING, spec.R, spec.Rt, spec.I
-    Ks, Kc = spec.Ks, spec.Kc
-    dev = d["x"].device
-    B = d["x"].shape[-1]
-    length = spec.length
+    ``trip_hist`` i32 (nb, B), both in place.  Returns (acc_passed,
+    rew_sum, last_rew, last_passed)."""
+    # imported here: the envs package imports this module
+    from ..envs import fast_core
+    from ..envs.structs import SimState
     multi = spec.k > 1
-    regular = spec.on_device_spawns and not spec.poisson
-    as_t = lambda a, dt=torch.int64: torch.as_tensor(a, dtype=dt,
-                                                     device=dev)
-    entry = as_t(spec.entry)
-    E = int(entry.numel())
-    dest_t = as_t(spec.dest[:Rt])
-    nxt_t = as_t(spec.nxt[:Rt])
-    prev_c = as_t(np.maximum(spec.prev, 0))
-    has_feeder = as_t(spec.prev >= 0, torch.bool)[:, None]
-    feeder_first = as_t((spec.prev >= 0) & (spec.prev < np.arange(R)),
-                        torch.bool)[:, None]
-    is_train = as_t(np.arange(R) < Rt, I32)[:, None]
-    pg_t = as_t(spec.phase_group[:Rt], I32)[:, None]
-    slots = torch.arange(S, device=dev, dtype=I32)[None, :, None]
-    rids = torch.arange(R, device=dev)[:, None]
-    sl = spec.slots
-
-    x, v, w = d["x"].clone(), d["v"].clone(), d["w"].clone()
-    ai = d["ai"].clone() if multi else None
-    leading, lastcar = d["leading"].clone(), d["lastcar"].clone()
-    phase, elapsed = d["phase"].clone(), d["elapsed"].clone()
-    waiting, detected = d["waiting"].clone(), d["detected"].clone()
-    passed_dst = d["passed_dst"].clone()
-    gap, backlog = d["gap"][0].clone(), d["backlog"][0].clone()
-    steps, gtick = d["steps"][0].clone(), d["gtick"][0].clone()
-    done = d["done"][0].clone()
+    rows = [d["x"], d["v"], d["w"]] + ([d["ai"]] if multi else [])
+    zeros = lambda n, dt: torch.zeros((n,) + tuple(seed.shape), dtype=dt,
+                                      device=seed.device)
+    sim = SimState(
+        cars=torch.stack(rows, 1), leading=d["leading"].clone(),
+        lastcar=d["lastcar"].clone(), phase=d["phase"].clone(),
+        elapsed=d["elapsed"].clone(), passed=zeros(spec.Rt, I32),
+        detected=d["detected"].clone(), waiting=d["waiting"].clone(),
+        passed_dst=d["passed_dst"].clone(), rewards=zeros(spec.I, F32),
+        steps=d["steps"][0].clone(), global_tick=d["gtick"][0].clone(),
+        spawn_gap=d["gap"][0].clone(), spawn_backlog=d["backlog"][0].clone(),
+        seed=seed, resets=torch.zeros_like(seed), done=d["done"][0].clone(),
+        trip_hist=trip_hist.clone() if spec.emit_trips else None)
     action = action.to(I32)
-    if multi and not spec.on_device_spawns and spawn_ai is None:
-        spawn_ai = torch.zeros((spec.W, Ks, B), dtype=I32, device=dev)
-
-    def sel(ai_plane, col):
-        """Archetype parameter ``col`` of each car from its index: the
-        TPU kernel's one-hot where-chain (an unknown index reads row 0)."""
-        out = torch.full_like(ai_plane, float(spec.arch[0, col]))
-        for j in range(1, spec.k):
-            out = torch.where(ai_plane == j, float(spec.arch[j, col]), out)
-        return out
-
-    def d_from(idx):
-        return (slots - idx[:, None, :]) % S
-
-    def at(plane, idx):
-        """plane[r, idx[r, b], b]: one slot per road."""
-        return plane.gather(1, (idx % S).long()[:, None, :])[:, 0]
-
-    def seg(per_road_t):
-        """Per-intersection sum over train roads (exact: multiples of
-        0.5)."""
-        return torch.zeros((I, B), dtype=per_road_t.dtype,
-                           device=dev).index_add_(0, dest_t, per_road_t)
-
-    def draws(first_slot, n):
-        return uniform24(draw_bits(seed, gtick, torch.arange(
-            first_slot, first_slot + n, device=dev)))
-
-    def gap_draw(u):
-        return torch.round(-torch.log(u + 1e-12) * spec.lam).to(I32)
-
     if autoreset:
-        rs = done.clone()
-        slot0 = rs[None, None, :] & (slots == 0)
-        x = torch.where(slot0, INF, x)
-        v = torch.where(slot0, 0.0, v)
-        w = torch.where(slot0, 0.0, w)
-        if multi:
-            ai = torch.where(slot0, 0.0, ai)
-        zero_if = lambda t: torch.where(rs, torch.zeros_like(t), t)
-        leading, lastcar = zero_if(leading), zero_if(lastcar)
-        elapsed, waiting = zero_if(elapsed), zero_if(waiting)
-        passed_dst, steps = zero_if(passed_dst), zero_if(steps)
-        if spec.on_device_spawns:
-            rphase = (draw_bits(seed, gtick, torch.arange(
-                sl.phase, sl.phase + I, device=dev)) & 1).to(I32)
-        else:
-            rphase = _hash_phase(gtick, I)
-        phase = torch.where(rs, rphase, phase)
-        done = torch.where(rs, False, done)
-
+        sim = fast_core.lazy_reset(spec, sim)
     if spec.emit_trips:
         # after the lazy reset: restarted lanes report their new phase
-        light.copy_(((elapsed + 1) * (phase != action).to(I32)).to(F32)
-                    * 0.5)
-        nb = trip_hist.shape[0]
-        is_exit = ~is_train.bool()
-
-    acc_passed = torch.zeros((Rt, B), dtype=I32, device=dev)
-    rew_sum = torch.zeros((I, B), dtype=F32, device=dev)
-    last_rew = torch.zeros((I, B), dtype=F32, device=dev)
-    last_passed = torch.zeros((Rt, B), dtype=I32, device=dev)
-
-    for w_tick in range(spec.W):
-        live = ~done
-        x0, v0, w0, ai0 = x, v, w, ai
-
-        # -- phase / elapsed ---------------------------------------------
-        flip = (phase != 0) ^ (action != 0)
-        if spec.learn_switch:
-            change, new_phase = action, flip.to(I32)
-        else:
-            change, new_phase = flip.to(I32), action
-        phase = torch.where(live, new_phase, phase)
-        elapsed = torch.where(live, (elapsed + 1) * (change == 0), elapsed)
-        rewards = torch.zeros((I, B), dtype=F32, device=dev)
-        one_rb = torch.where(steps >= 0, 1.0, 2.0).to(F32)
-
-        # -- spawning -----------------------------------------------------
-        d_last = d_from(lastcar)
-        tail_x = at(x, lastcar)
-        has_tail = (lastcar - leading) % S > 0
-        if multi:
-            # the tail car's own length and gap, two roundings
-            tail_ai = at(ai, lastcar)
-            tail_f = tail_x - sel(tail_ai, C.L) - sel(tail_ai, C.S0)
-        else:
-            tail_f = tail_x - spec.c_l * one_rb - spec.c_s0
-        floor_r = torch.where(has_tail, tail_f, INF)
-        free_r = (leading - 1 - lastcar) % S
-        placed = torch.zeros((R, B), dtype=I32, device=dev)
-        ovf_cnt = torch.zeros((R, B), dtype=I32, device=dev)
-        xplane = torch.zeros((R, S, B), dtype=F32, device=dev)
-        if multi:
-            vplane = torch.zeros_like(xplane)
-            aiplane = torch.zeros_like(xplane)
-        if spec.on_device_spawns:
-            u = draws(0, sl.phase)
-            if regular:
-                # a batch of reg_batch cars whenever the global tick hits
-                # the interval; gap and backlog stay untouched
-                due = (gtick % spec.reg_tpc == 0) if spec.reg_tpc \
-                    else torch.ones_like(live)
-                nplace = torch.where(due & live, spec.reg_batch, 0)
-            else:
-                gap = torch.where(gap < 0, gap_draw(u[sl.first]), gap)
-                for k in range(sl.n_renew):
-                    en_g = (gap == 0) & live
-                    backlog = backlog + en_g.to(I32)
-                    gap = torch.where(en_g, gap_draw(u[sl.renew + k]), gap)
-                gap = torch.where(live, gap - (gap > 0).to(I32), gap)
-                nplace = torch.where(live, torch.clamp(backlog, max=Ks), 0)
-                backlog = backlog - nplace
-            if multi and not regular:
-                ua = draws(sl.arch, Ks)
-        for j in range(Ks):
-            aj = None
-            if spec.on_device_spawns:
-                en = (nplace > j) & live
-                ridx = torch.clamp((u[sl.entry + j] * E).to(torch.int64),
-                                   max=E - 1)
-                road = entry[ridx]
-                if multi:
-                    # regular batches are always archetype 0
-                    aj = torch.zeros(B, dtype=I32, device=dev) if regular \
-                        else torch.clamp((ua[j] * spec.k).to(I32),
-                                         max=spec.k - 1)
-            else:
-                eidx = spawn_rows[w_tick, j]
-                en = (eidx >= 0) & live
-                road = entry[torch.clamp(eidx, min=0).long()]
-                if multi:
-                    aj = spawn_ai[w_tick, j]
-            attempt = (rids == road[None, :]) & en[None, :]
-            full = placed >= free_r
-            ok = attempt & ~full
-            if multi:
-                ajf = aj.to(F32)[None, :]
-                xj = torch.minimum(sel(ajf, C.X), floor_r)
-                floor_r = torch.where(
-                    ok, xj - sel(ajf, C.L) - sel(ajf, C.S0), floor_r)
-            else:
-                xj = torch.clamp(floor_r, max=spec.spawn_x)
-                floor_r = torch.where(ok, xj - spec.c_l * one_rb
-                                      - spec.c_s0, floor_r)
-            ovf_cnt = ovf_cnt + (attempt & full).to(I32)
-            placed = placed + ok.to(I32)
-            m = (d_last == placed[:, None, :]) & ok[:, None, :]
-            xplane = torch.where(m, xj[:, None, :], xplane)
-            if multi:
-                vplane = torch.where(m, sel(ajf, C.V)[:, None, :], vplane)
-                aiplane = torch.where(m, ajf[:, None, :], aiplane)
-        overflow = ovf_cnt.amax(0) > 0
-        rewards = rewards + seg(-float(C.OVERFLOW_PENALTY)
-                                * ovf_cnt[:Rt].to(F32))
-        pm = (d_last >= 1) & (d_last <= placed[:, None, :])
-        x = torch.where(pm, xplane, x)
-        v = torch.where(pm, vplane if multi else spec.spawn_v, v)
-        w = torch.where(pm, steps.to(F32)[None, None, :], w)
-        if multi:
-            ai = torch.where(pm, aiplane, ai)
-        lastcar = (lastcar + placed) % S
-
-        dL = d_from(leading)
-        dT = d_from(lastcar)
-        ncars = (lastcar - leading) % S
-
-        # -- lights -------------------------------------------------------
-        red_or_yellow = ((pg_t == phase[dest_t])
-                         | (elapsed[dest_t] < C.YELLOW_TICKS))
-        next_x = at(x, lastcar)[nxt_t]
-        next_empty = (leading == lastcar)[nxt_t]
-        fake_x = torch.where(red_or_yellow, length,
-                             torch.where(next_empty, INF, next_x + length))
-        x[:Rt].scatter_(1, leading[:Rt].long()[:, None, :],
-                        fake_x[:, None, :])
-
-        # -- IDM ----------------------------------------------------------
-        one = torch.where(steps >= 0, 1.0, 2.0).to(F32)[None, None, :]
-        ld_x = torch.roll(x, 1, dims=1)
-        ld_v = torch.roll(v, 1, dims=1)
-        mask = (dL >= 1) & (dL <= ncars[:, None, :])
-        if multi:
-            # per-car parameters; the leader's length rides the roll, the
-            # fake leader has none
-            p_a, p_b = sel(ai, C.A), sel(ai, C.B)
-            p_t, p_s0, p_v0 = sel(ai, C.T), sel(ai, C.S0), sel(ai, C.V0)
-            ld_l = torch.where(dL == 1, 0.0,
-                               torch.roll(sel(ai, C.L), 1, dims=1))
-            den = (2 * torch.sqrt(p_a * p_b)) * one
-            v0p = p_v0 * one
-        else:
-            p_a, p_t, p_s0 = spec.c_a, spec.c_t, spec.c_s0
-            ld_l = torch.where(dL == 1, 0.0, spec.c_l).to(F32)
-            den = spec.den0 * one
-            v0p = spec.c_v0 * one
-        desired = p_s0 + _nn(_nn(v * p_t) + v * (v - ld_v) / den)
-        gapp = ld_x - x - ld_l
-        q = v / v0p
-        free_flow = _nn((q * q) * (q * q))
-        r = desired / (gapp + float(C.EPS))
-        dv = p_a * (1 - free_flow - _nn(r * r))
-        dvr = dv * spec.rate
-        dxp = _nn(spec.rate * v) + _fin(0.5 * dvr * spec.rate)
-        x = torch.where(mask, x + _nn((dxp > 0) * dxp), x)
-        v = torch.where(mask, _nn(v + _fin(dvr)), v)
-        in_second = ((leading > lastcar)[:, None, :]
-                     & (slots <= lastcar[:, None, :]))
-        metric = torch.where(in_second, x, v)
-        wait_inc = (mask & (metric < float(C.THRESH))).sum(1)[:Rt]
-        det_cnt = (mask & (x > length - float(C.DETECT_RANGE))).sum(1)[:Rt]
-        occ_live = (ncars[:Rt] > 0) & live[None, :]
-        waiting = waiting + torch.where(occ_live, wait_inc.to(I32), 0)
-        detected = torch.where(occ_live, det_cnt.to(I32), detected)
-        if spec.decel_penalty:
-            # count/10 of the decelerating cars per train road, before
-            # the hand-off; k/10 is not dyadic, so the adds run in the
-            # TPU kernel's order, one direction block (d * I + i) at a
-            # time, as true divisions by a run-time 10
-            decel_cnt = (mask & (dvr < 0)).sum(1)[:Rt].to(F32)
-            ten = 10.0 * one_rb
-            for d4 in range(4):
-                rewards = rewards + decel_cnt[d4 * I:(d4 + 1) * I] / ten
-
-        # -- hand-off -----------------------------------------------------
-        beyond = mask & (x > length)
-        run = torch.ones((R, B), dtype=torch.bool, device=dev)
-        count = torch.zeros((R, B), dtype=I32, device=dev)
-        x_k, v_k, w_k, ai_k = [], [], [], []
-        for k in range(1, Kc + 1):
-            run = run & at(beyond.to(I32), leading + k).bool()
-            count = count + run.to(I32)
-            x_k.append(at(x, leading + k) - length)
-            v_k.append(at(v, leading + k))
-            w_k.append(at(w, leading + k))
-            if multi:
-                ai_k.append(at(ai, leading + k))
-        fake_xr, fake_vr, fake_wr = at(x, leading), at(v, leading), \
-            at(w, leading)
-        if spec.emit_trips:
-            # the TPU kernel's exit-pop events, scattered per tick: each
-            # car popped off an exit road of a live lane leaves the map
-            # after steps - w ticks (w clamped before the cast: the row
-            # of a slot that does not cross may hold +-inf; masked out)
-            for k in range(Kc):
-                ev = (count >= k + 1) & is_exit & live[None, :]
-                dur = steps[None, :] - torch.clamp(w_k[k], 0.0, 1e9).to(I32)
-                trip_hist.scatter_add_(0, torch.clamp(dur, 0, nb - 1).long(),
-                                       ev.to(I32))
-        pop_mask = (dL >= 1) & (dL <= count[:, None, :])
-        # the receiver's tail, read before its own pops
-        tail_x2 = at(x, lastcar)
-        x = torch.where(pop_mask, fake_xr[:, None, :], x)
-        v = torch.where(pop_mask, fake_vr[:, None, :], v)
-        w = torch.where(pop_mask, fake_wr[:, None, :], w)
-        if multi:
-            tail_a2 = at(ai, lastcar)
-            ai = torch.where(pop_mask, at(ai, leading)[:, None, :], ai)
-        new_leading = (leading + count) % S
-
-        thr = count * is_train
-        count_in = torch.where(has_feeder, thr[prev_c], 0)
-        cap_lead = torch.where(feeder_first, leading, new_leading)
-        free2 = (cap_lead - 1 - lastcar) % S
-        accepted = torch.minimum(count_in, free2)
-        n_over = count_in - accepted
-        overflow = overflow | (n_over.amax(0) > 0)
-        rewards = rewards + seg(-float(C.OVERFLOW_PENALTY)
-                                * n_over[:Rt].to(F32))
-        occ_t = torch.where(feeder_first, leading != lastcar,
-                            new_leading != lastcar)
-        if multi:
-            tail_f2 = tail_x2 - sel(tail_a2, C.L) - sel(tail_a2, C.S0)
-        else:
-            tail_f2 = tail_x2 - spec.c_l * one_rb - spec.c_s0
-        floor2 = torch.where(occ_t, tail_f2, INF)
-        xp2 = torch.zeros((R, S, B), dtype=F32, device=dev)
-        vp2 = torch.zeros_like(xp2)
-        wp2 = torch.zeros_like(xp2)
-        ap2 = torch.zeros_like(xp2) if multi else None
-        for k in range(Kc):
-            xin = torch.minimum(x_k[k][prev_c], floor2)
-            mkk = dT == k + 1
-            xp2 = torch.where(mkk, xin[:, None, :], xp2)
-            vp2 = torch.where(mkk, v_k[k][prev_c][:, None, :], vp2)
-            wp2 = torch.where(mkk, w_k[k][prev_c][:, None, :], wp2)
-            if multi:
-                # each accepted car becomes the tail: its own length and
-                # gap chain the next floor
-                a_in = ai_k[k][prev_c]
-                ap2 = torch.where(mkk, a_in[:, None, :], ap2)
-                floor2 = xin - sel(a_in, C.L) - sel(a_in, C.S0)
-            else:
-                floor2 = xin - spec.c_l * one_rb - spec.c_s0
-        push_mask = (dT >= 1) & (dT <= accepted[:, None, :])
-        x = torch.where(push_mask, xp2, x)
-        v = torch.where(push_mask, vp2, v)
-        w = torch.where(push_mask, wp2, w)
-        if multi:
-            ai = torch.where(push_mask, ap2, ai)
-        new_lastcar = (lastcar + accepted) % S
-        passed = thr[:Rt]
-        pd_new = passed_dst | (seg(passed) > 0)
-
-        # -- freeze finished lanes, commit the tick -----------------------
-        lm3 = live[None, None, :]
-        x = torch.where(lm3, x, x0)
-        v = torch.where(lm3, v, v0)
-        w = torch.where(lm3, w, w0)
-        if multi:
-            ai = torch.where(lm3, ai, ai0)
-        leading = torch.where(live, new_leading, leading)
-        lastcar = torch.where(live, new_lastcar, lastcar)
-        passed_dst = torch.where(live, pd_new, passed_dst)
-        steps = torch.where(live, steps + 1, steps)
-        gtick = torch.where(live, gtick + 1, gtick)
-        acc_passed = acc_passed + torch.where(live, passed, 0)
-        last_passed = torch.where(live, passed, last_passed)
-        rew_sum = rew_sum + torch.where(live, rewards, 0.0)
-        last_rew = torch.where(live, rewards, last_rew)
-        done = torch.where(live, overflow, done)
-
-    new = dict(x=x, v=v, w=w, leading=leading, lastcar=lastcar,
-               phase=phase, elapsed=elapsed, waiting=waiting,
-               detected=detected, passed_dst=passed_dst, gap=gap[None],
-               backlog=backlog[None], steps=steps[None],
-               gtick=gtick[None], done=done[None])
+        light.copy_(fast_core.light_times(sim, action))
+    sim, acc_passed, rew_sum, _ = fast_core.run_ticks(
+        spec, sim, action, spawn_rows,
+        spawn_ai if spawn_rows is not None else None)
+    new = dict(x=sim.cars[:, 0], v=sim.cars[:, 1], w=sim.cars[:, 2],
+               leading=sim.leading, lastcar=sim.lastcar, phase=sim.phase,
+               elapsed=sim.elapsed, waiting=sim.waiting,
+               detected=sim.detected, passed_dst=sim.passed_dst,
+               gap=sim.spawn_gap[None], backlog=sim.spawn_backlog[None],
+               steps=sim.steps[None], gtick=sim.global_tick[None],
+               done=sim.done[None])
     if multi:
-        new["ai"] = ai
+        new["ai"] = sim.cars[:, 3]
     for k, t in new.items():
         d[k].copy_(t)
-    return acc_passed, rew_sum, last_rew, last_passed
+    if spec.emit_trips:
+        trip_hist.copy_(sim.trip_hist)
+    return acc_passed, rew_sum, sim.rewards, sim.passed
 
 
 def window(spec: WindowSpec, d: dict, action, spawn_rows, seed,

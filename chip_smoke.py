@@ -120,6 +120,21 @@ Phases, one JSON line each:
    (12 frames; launches == windows) and with --render_ticks on the
    rebuilt per-tick core (120 frames); PNG frames where matplotlib
    imports, else terminal frames into a buffer.
+   mesh_world1: the sharded CLI at world 1, ``python -m
+   traffic_env_tpu_torch --trainer=qlearn --mesh_shape=1`` in a
+   subprocess (NCCL, one rank), 2 training episodes with a validation
+   at 4096 envs: its statistics bit-equal to ``run_alg`` without the
+   flag, launches == windows (counted in the subprocess), rank 0's
+   checkpoint written.  mesh: two ranks on the one card through the
+   package's launcher (``parallel.launch``, gloo, both on cuda:0, 2048
+   of 4096 envs each) against the unsharded runs: the window kernel at
+   each rank's env_base against its plain version (bit-equal), a greedy
+   episode (obs, reward, done and final state bit-equal), a qlearn
+   episode at the JAX widths (parameters bit-equal, else within rtol
+   5e-3 / atol 1e-4) and an a3c window on the 3x3 distillation config
+   (statistics within rtol 1e-3 / atol 1e-5, parameters 5e-3 / 1e-4);
+   launches == windows summed over the ranks; the agent-step ms of each
+   beside the unsharded one, for information.
 10. k2: ``random_rollout`` through ``make_batched_env(archetypes=TWO)``
    at 4096 envs, device spawns, 120 timed agent steps: env-steps/s, the
    truck share of the cars on the roads, launches == windows.
@@ -145,7 +160,10 @@ Phases, one JSON line each:
    turns, bench env-steps/s and qlearn's agent-step ms of each commit.
 
 Then the ``kernels`` line, the nvidia-smi line, and last the ``ok``
-line.  ``--tune`` adds phase 13 and ``--parent DIR`` phase 14.  Any
+line.  ``--tune`` adds phase 13 and ``--parent DIR`` phase 14.
+``--mesh_only`` runs the card, build and mesh phases alone;
+``--mesh_ranks=4 --mesh_backend=nccl`` runs the mesh phase on four
+cards, one a rank, with a qlearn episode at 4096 envs a rank timed.  Any
 failure exits non-zero before the ``ok`` line; without a CUDA device the
 script exits non-zero at once.
 """
@@ -171,6 +189,7 @@ import numpy as np
 import torch
 
 from traffic_env_tpu_torch import constants as C
+from traffic_env_tpu_torch import parallel
 from traffic_env_tpu_torch.algorithms import (a3c, baselines, cem, common,
                                               polgrad_rnn, qlearn, qrnn,
                                               run_alg)
@@ -2314,6 +2333,299 @@ def render_phase(card):
     return rows
 
 
+# -- mesh: the sharded path ---------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the mesh phase's two ranks on the one card, each with half the envs
+MESH_RANKS = 2
+
+
+def mesh_world1_phase(card):
+    """(a) The production path at world 1: ``python -m
+    traffic_env_tpu_torch --trainer=qlearn --mesh_shape=1`` in a
+    subprocess (NCCL, one rank), 2 training episodes with a validation
+    at 4096 envs, against ``run_alg`` without the flag in this process:
+    the episode statistics bit-equal, launches == windows (counted in
+    the subprocess, which starts at 0), and rank 0's checkpoint."""
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_ref_")
+    mesh_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh1_")
+    flags = dict(total_episodes=2, validate_rate=2, summary_rate=1,
+                 save_rate=1000)
+    try:
+        cfg = qlearn_config(logdir=ref_dir, **flags)
+        run_alg(cfg)
+        reset_w = 1 + cfg.warmup_lights + cfg.history - 1
+        windows = reset_w + 2 * cfg.episode_len + reset_w + cfg.episode_len
+        code = ("import json, runpy, sys\n"
+                "from traffic_env_tpu_torch.ops import window_cuda\n"
+                "sys.argv = ['traffic_env_tpu_torch'] + sys.argv[1:]\n"
+                "runpy.run_module('traffic_env_tpu_torch', "
+                "run_name='__main__')\n"
+                "print('LAUNCHES ' + json.dumps(dict(window_cuda.launches)))")
+        argv = ["--trainer=qlearn", f"--num_envs={N_ENVS}",
+                "--mesh_shape=1", f"--logdir={mesh_dir}"] + \
+            [f"--{k}={v}" for k, v in flags.items()]
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code] + argv, env=env,
+                              cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SmokeFailure("mesh_world1: the CLI failed:\n"
+                               + proc.stderr[-3000:])
+        launches = json.loads(re.findall(r"^LAUNCHES (.*)$", proc.stdout,
+                                         re.M)[-1])
+        names = ("loss", "max_predicted_q", "mean_reward", "avg_r_summary")
+        pick = lambda d: [(m["name"], m["step"], m["value"])
+                          for m in read_metrics(d) if m["name"] in names]
+        ref, got = pick(ref_dir), pick(mesh_dir)
+        row = {"phase": "mesh_world1", "card": card, "envs": N_ENVS,
+               "backend": "nccl", "world": 1,
+               "cli": "python -m traffic_env_tpu_torch " + " ".join(argv),
+               "seconds_with_startup": seconds,
+               "stats_bit_equal": ref == got, "stats": got,
+               "checkpoint": os.path.isfile(os.path.join(mesh_dir,
+                                                         "model.ckpt")),
+               "launches": launches, "windows_run": windows}
+        emit(row)
+        PATH_LAUNCHES["mesh_world1_qlearn"] = launches
+        if launches != {"window": windows}:
+            raise SmokeFailure(f"mesh_world1: launches {launches}, windows "
+                               f"{windows}")
+        if ref != got or len(got) != 7 or not row["checkpoint"]:
+            raise SmokeFailure("mesh_world1: the statistics differ from the "
+                               "unsharded run's, or no checkpoint")
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+        shutil.rmtree(mesh_dir, ignore_errors=True)
+    return row
+
+
+def greedy_rollout_gathered(cfg, steps):
+    """A greedy episode of ``steps`` lazy-autoreset steps from a reset
+    of the (rank's) env at 4096 global envs: the global obs, reward and
+    done of every step, the global final state, the launches of the
+    episode and its agent-step ms (call it twice: the first call loads
+    the process's kernels)."""
+    topo, cfg, benv = build_env(cfg)
+    policy = baselines.make_policies(cfg, benv, topo)["greedy"]
+    gen = torch.Generator(device=benv.device)
+    gen.manual_seed(11)
+    env = benv.init(gen)
+    held = torch.zeros((benv.n_intersections, benv.n_envs),
+                       dtype=torch.int32, device=benv.device)
+    torch.cuda.synchronize()
+    window_cuda.launches.clear()
+    t0 = time.perf_counter()
+    env, _ = benv.reset(env)
+    out = []
+    for t in range(steps):
+        a, held = policy(t, None, env, held)
+        env, obs, r, d, _ = benv.step_autoreset_lazy(env, a)
+        out.append((obs, r, d))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = dict(window_cuda.launches)
+    g = lambda x: parallel.all_gather(x)
+    return ([tuple(g(x) for x in o) for o in out],
+            {k: g(v) for k, v in vars(env.sim).items() if v is not None},
+            launches, ms)
+
+
+def qlearn_episode_params(cfg):
+    """One qlearn training episode from make_state: (stats, parameters,
+    launches), and the agent-step ms of a second episode (the first
+    loads the process's kernels)."""
+    ctx, ts = qlearn.make_state(cfg)
+    torch.cuda.synchronize()
+    window_cuda.launches.clear()
+    stats = ctx.fns.run_episode(ts)
+    params = {k: v.clone() for k, v in ts.main.state_dict().items()}
+    launches = dict(window_cuda.launches)
+    t0 = time.perf_counter()
+    ctx.fns.run_episode(ts)
+    ms = (time.perf_counter() - t0) / cfg.episode_len * 1e3
+    return stats, params, launches, ms
+
+
+def a3c_window_params(cfg):
+    """One a3c window (30 agent steps, BC on the teacher) from
+    make_state: (statistics reduced over the ranks, parameters,
+    launches of make_state's reset and the window), and the ms an agent
+    step of a second window, its update included."""
+    window_cuda.launches.clear()
+    ctx, ts = a3c.make_state(cfg)
+    stats = torch.stack(ctx.fns.run_window(ts))
+    stats = parallel.all_reduce([stats], "mean")[0].tolist()
+    params = {k: v.clone() for k, v in ts.net.state_dict().items()}
+    launches = dict(window_cuda.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx.fns.run_window(ts)[0].item()
+    ms = (time.perf_counter() - t0) / cfg.batch_size * 1e3
+    return stats, params, launches, ms
+
+
+def mesh_kernel_case(windows=20):
+    """The window kernel at this rank's env_base against its plain
+    version at the same env_base: 4096 global envs on 3x3, device
+    spawns, lazy autoreset, ``windows`` windows of random actions; the
+    largest difference of any output or state leaf."""
+    topo = GridRoad(3, 3, 250.0)
+    cfg = bench_config(topo)
+    base, n = parallel.env_slice(N_ENVS)
+    spec = make_window_spec(topo, cfg, True, 4, env_base=base)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    sim = fast_core.reset(fast_core.init_state_compact(
+        topo, n, gen, "cuda", env_base=base, n_global=N_ENVS), env_base=base)
+    ref = sim.clone()
+    agen = torch.Generator(device="cuda")
+    agen.manual_seed(6)
+    err = 0.0
+    for _ in range(windows):
+        a = torch.randint(0, 2, (topo.intersections, N_ENVS),
+                          dtype=torch.int32, device="cuda",
+                          generator=agen)[:, base:base + n].contiguous()
+        out = window_cuda.window(spec, sim_to_dict(sim), a, None, sim.seed,
+                                 True)
+        want = window_reference(spec, sim_to_dict(ref), a, None, ref.seed,
+                                True)
+        err = max([err] + [leaf_diff(x, y)[1] for x, y in zip(out, want)])
+    err = max([err] + [leaf_diff(getattr(sim, k), v)[1]
+                       for k, v in vars(ref).items() if v is not None])
+    return {"env_base": base, "envs": n, "windows": windows,
+            "max_abs_err": err}
+
+
+def mesh_ranks(scaling=False):
+    """Every rank of the mesh phase: the kernel at its env_base, then
+    the greedy episode, the qlearn episode and the a3c window, each
+    with the launch counts set to 0 just before it; the launches summed
+    over the ranks.  With ``scaling``, also a qlearn episode at 4096
+    envs a rank, timed.  Rank 0 returns its results (global where
+    gathered), which the caller holds to the unsharded ones."""
+    par = parallel
+    variants = ("window", "window_telemetry")
+
+    def summed(launches):
+        t = torch.tensor([launches.get(v, 0) for v in variants],
+                         device=par.device())
+        t = par.all_sum(t).tolist()
+        return {v: int(c) for v, c in zip(variants, t) if c}
+
+    mine = mesh_kernel_case()
+    kernel = [par.broadcast_object(mine, src=i) for i in range(par.world())]
+    greedy_rollout_gathered(greedy_config(), 120)
+    greedy = greedy_rollout_gathered(greedy_config(), 120)
+    qlearn_r = qlearn_episode_params(qlearn_config())
+    a3c_r = a3c_window_params(a3c_config())
+    scaled = None
+    if scaling:
+        scaled = qlearn_episode_params(
+            qlearn_config(num_envs=N_ENVS * par.dp_size()))[3]
+    return {"kernel": kernel, "qlearn_per_rank_4096_ms": scaled,
+            "greedy": greedy[:2] + (summed(greedy[2]), greedy[3]),
+            "qlearn": qlearn_r[:2] + (summed(qlearn_r[2]), qlearn_r[3]),
+            "a3c": a3c_r[:2] + (summed(a3c_r[2]), a3c_r[3])}
+
+
+def params_diff(a, b):
+    """(bit-equal, largest |a - b|, within rtol 5e-3 / atol 1e-4, and
+    the elements beyond it by parameter)."""
+    equal = all(torch.equal(a[k], b[k]) for k in a)
+    err = max(leaf_diff(a[k], b[k])[1] for k in a)
+    beyond = {k: int((~torch.isclose(b[k], a[k], rtol=5e-3,
+                                     atol=1e-4)).sum()) for k in a}
+    beyond = {k: n for k, n in beyond.items() if n}
+    return equal, err, not beyond, beyond
+
+
+def mesh_phase(card, ranks=MESH_RANKS, backend="gloo"):
+    """(b) Two ranks on the one card (the package's launcher, gloo, each
+    rank on cuda:0 with 2048 of 4096 envs; or ``ranks`` ranks with
+    ``backend="nccl"``, one card a rank, and then also a qlearn episode
+    at 4096 envs a rank, timed) against the unsharded runs in this
+    process: a greedy episode (obs, reward, done and final state
+    bit-equal), a qlearn episode at the JAX widths (parameters bit-equal,
+    or within rtol 5e-3 / atol 1e-4 where an argmax on the rank's batch
+    rounds otherwise), an a3c window on the 3x3 distillation config
+    (statistics within rtol 1e-3 / atol 1e-5, parameters 5e-3 / 1e-4),
+    and the kernel at each rank's env_base against its plain version,
+    bit-equal.  The sharded and unsharded agent-step ms side by side,
+    for information: two ranks on one card give no speed-up."""
+    greedy_rollout_gathered(greedy_config(), 120)
+    ref_g = greedy_rollout_gathered(greedy_config(), 120)
+    ref_q = qlearn_episode_params(qlearn_config())
+    ref_a = a3c_window_params(a3c_config())
+    t0 = time.perf_counter()
+    nccl = backend == "nccl"
+    got = parallel.launch(
+        mesh_ranks, (nccl,), world_size=ranks, backend=backend,
+        device_type="cuda", share_card=not nccl, timeout_s=600)
+    seconds = time.perf_counter() - t0
+    g_equal = all(torch.equal(x, y) for a, b in zip(ref_g[0],
+                                                    got["greedy"][0])
+                  for x, y in zip(a, b)) and \
+        all(torch.equal(v, got["greedy"][1][k]) for k, v in ref_g[1].items())
+    q_equal, q_err, q_close, q_beyond = params_diff(ref_q[1],
+                                                    got["qlearn"][1])
+    a_equal, a_err, a_close, a_beyond = params_diff(ref_a[1],
+                                                    got["a3c"][1])
+    a_stats = bool(np.allclose(got["a3c"][0], ref_a[0], rtol=1e-3,
+                               atol=1e-5))
+    reset_w = lambda c: 1 + c.warmup_lights + c.history - 1
+    qc, ac, gc = qlearn_config(), a3c_config(), greedy_config()
+    want = {"mesh_greedy": {"window": ranks * (reset_w(gc) + 120)},
+            "mesh_qlearn": {"window": ranks * qc.episode_len},
+            "mesh_a3c": {"window": ranks * (reset_w(ac) + ac.batch_size)}}
+    for path, r in (("mesh_greedy", got["greedy"]),
+                    ("mesh_qlearn", got["qlearn"]),
+                    ("mesh_a3c", got["a3c"])):
+        PATH_LAUNCHES[path] = r[2]
+    row = {"phase": "mesh", "card": card, "backend": backend,
+           "ranks": ranks,
+           "device": "cuda:r (rank r)" if nccl else "cuda:0 (every rank)",
+           "global_envs": N_ENVS, "seconds_with_startup": seconds,
+           "kernel_env_base": got["kernel"],
+           "greedy_bit_equal": g_equal,
+           "qlearn_params_bit_equal": q_equal, "qlearn_max_abs_err": q_err,
+           "qlearn_params_beyond_tolerance": q_beyond,
+           "qlearn_stats": [ref_q[0], got["qlearn"][0]],
+           "a3c_stats_close": a_stats, "a3c_params_bit_equal": a_equal,
+           "a3c_params_max_abs_err": a_err,
+           "a3c_params_beyond_tolerance": a_beyond,
+           "a3c_learning_rate": ac.learning_rate,
+           "a3c_stats": [ref_a[0], got["a3c"][0]],
+           "launches": {p: PATH_LAUNCHES[p] for p in want},
+           "windows_run": want,
+           "agent_step_ms": {
+               "greedy": {"unsharded": ref_g[3], "sharded": got["greedy"][3]},
+               "qlearn": {"unsharded": ref_q[3], "sharded": got["qlearn"][3]},
+               "a3c_window": {"unsharded": ref_a[3],
+                              "sharded": got["a3c"][3]}}}
+    if nccl:
+        # weak scaling: 4096 envs a rank against 4096 on one card
+        row["qlearn_4096_envs_a_rank_ms"] = got["qlearn_per_rank_4096_ms"]
+        row["env_steps_per_s"] = {
+            "one_card_4096": qc.light_iterations * N_ENVS / ref_q[3] * 1e3,
+            f"{ranks}_ranks_{ranks * N_ENVS}": qc.light_iterations * ranks
+            * N_ENVS / got["qlearn_per_rank_4096_ms"] * 1e3}
+    emit(row)
+    for path, w in want.items():
+        if PATH_LAUNCHES[path] != w:
+            raise SmokeFailure(f"{path}: launches {PATH_LAUNCHES[path]}, "
+                               f"windows {w}")
+    if any(k["max_abs_err"] != 0 for k in got["kernel"]) or not g_equal \
+            or not q_close or not a_close or not a_stats \
+            or not all(math.isfinite(x) for x in got["qlearn"][0]):
+        raise SmokeFailure("mesh: a sharded run differs from the unsharded "
+                           "one")
+    return row
+
+
 def kernel_entry(name, replaces, main_path, parity_rows, timing):
     """One entry of the kernels line: launches on the variant's main
     path and on every path, the parity cases' largest error, the times
@@ -2337,6 +2649,15 @@ def main():
     ap.add_argument("--tune", action="store_true",
                     help="also sweep the launch geometry and profile the "
                     "kernel's phases")
+    ap.add_argument("--mesh_only", action="store_true",
+                    help="run only the mesh phases (the card and build "
+                    "lines first, the ok line last)")
+    ap.add_argument("--mesh_ranks", type=int, default=MESH_RANKS,
+                    help="ranks of the mesh phase")
+    ap.add_argument("--mesh_backend", default="gloo",
+                    choices=("gloo", "nccl"),
+                    help="gloo: every rank on cuda:0; nccl: one card a "
+                    "rank, and a qlearn episode at 4096 envs a rank")
     ap.add_argument("--exact_envs", type=int, default=256,
                     help="envs of the exact_qlearn phase (the JAX "
                     "defaults' 1024 take minutes of host stream time)")
@@ -2363,6 +2684,14 @@ def main():
           "ptxas": _build.ptxas_usage(info["log"]),
           "ptxas_log": info["log"].strip().splitlines()[-4:]})
 
+    if args.mesh_only:
+        mesh_world1_phase(card)
+        mesh_phase(card, args.mesh_ranks, args.mesh_backend)
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     parity = parity_phase()
     env_parity_phase()
     exact_parity_phase(args.exact_envs)
@@ -2377,6 +2706,8 @@ def main():
         "qlearn_train_validation_rewards": train_row["validation_rewards"],
         "qlearn_validate_rewards": val_row["rewards"]})
     render_phase(card)
+    mesh1_row = mesh_world1_phase(card)
+    mesh_row = mesh_phase(card, args.mesh_ranks, args.mesh_backend)
     exact_rows = exact_qlearn_phase(card, args.exact_envs)
     conv_rows = conv_qlearn_phase(card)
     a3c_phase(card, "a3c", {})
@@ -2434,6 +2765,12 @@ def main():
           **{f"ticks_{r['case']}_{k}": r[k] for r in tick_rows
              for k in ("window_step_ms", "per_tick_step_ms",
                        "lazy_ticks_step_ms", "tick_stack_bytes")},
+          "mesh_world1_seconds_with_startup":
+              mesh1_row["seconds_with_startup"],
+          "mesh_seconds_with_startup": mesh_row["seconds_with_startup"],
+          **{f"mesh_{name}_{k}_ms": v
+             for name, r in mesh_row["agent_step_ms"].items()
+             for k, v in r.items()},
           "ms_over_core": {r["variant"]: r["ms"] / core["ms"]
                            for r in (tel, decel, regular, k2)}})
 

@@ -40,6 +40,43 @@ def test_kernel_matches_reference_on_card():
 
 
 @pytest.mark.gpu
+def test_kernel_at_env_base_matches_reference_on_card():
+    """On a CUDA card: envs 256..511 of a batch of 512, as the shard of
+    a rank at env_base 256: the kernel equals its plain version at the
+    same env_base bit for bit, and both equal columns 256.. of the whole
+    batch's kernel run (device spawns, lazy autoreset, 3x3, 20
+    windows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from traffic_env_tpu_torch.ops import window_cuda
+    topo = GridRoad(3, 3, 250.0)
+    cfg = derive_spawn_rate(Config().derive(), topo.open_sides(0))
+    B, k = 512, 256
+    spec = make_window_spec(topo, cfg, True, 4)
+    pspec = make_window_spec(topo, cfg, True, 4, env_base=k)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    full = fast_core.reset(fast_core.init_state_compact(topo, B, gen,
+                                                        "cuda"))
+    gen.manual_seed(0)
+    part = fast_core.reset(fast_core.init_state_compact(
+        topo, B - k, gen, "cuda", env_base=k, n_global=B), env_base=k)
+    df, dk = sim_to_dict(full), sim_to_dict(part)
+    dp = {n: t.clone() for n, t in dk.items()}
+    for _ in range(20):
+        a = torch.randint(0, 2, (9, B), dtype=torch.int32, device="cuda")
+        ap = a[:, k:].contiguous()
+        of = window_cuda.window(spec, df, a, None, full.seed, True)
+        ok = window_cuda.window(pspec, dk, ap, None, part.seed, True)
+        op = window_reference(pspec, dp, ap, None, part.seed, True)
+        for u, v, w in zip(of, ok, op):
+            assert torch.equal(v, w) and torch.equal(u[..., k:], v)
+    for n in dk:
+        assert torch.equal(dk[n], dp[n]) and torch.equal(df[n][..., k:],
+                                                         dk[n])
+
+
+@pytest.mark.gpu
 def test_telemetry_kernel_matches_reference_on_card():
     """On a CUDA card: the telemetry variant equals its plain version bit
     for bit (device spawns, lazy autoreset, 3x3, 256 envs, 20 windows),

@@ -154,7 +154,7 @@ def test_args_match_the_kernel_struct():
     kinds = {wc._P: "ptr", wc._I: "int", wc._F: "float",
              ctypes.c_longlong: "long long", wc._Layout: "Layout"}
     assert [(n, kinds[t]) for n, t in wc._Args._fields_] == _c_fields()
-    assert len(_c_fields()) == 34 + 1 + 25 + 15 + 1
+    assert len(_c_fields()) == 34 + 1 + 26 + 15 + 1
     assert [(n, kinds[t]) for n, t in wc._Layout._fields_] == \
         _c_fields("Layout")
     assert len(_c_fields("Layout")) == 38

@@ -1,6 +1,8 @@
 """Learners and scripted baselines, dispatched by trainer name
 (counterpart of ``traffic_env_tpu/algorithms/__init__.py``): qlearn,
-qrnn, a3c, polgrad_rnn, cem and the six baselines."""
+qrnn, a3c, polgrad_rnn, cem and the six baselines, unsharded or, with
+``--mesh_shape`` or ``--num_processes``, on the ranks of a sharded run
+(``parallel/dist.py``)."""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ import importlib
 
 import torch
 
+from .. import parallel
 from ..config import Config
 
 _BASELINES = ("random", "const0", "const1", "fixed", "greedy",
@@ -16,11 +19,9 @@ _PORTED = ("qlearn", "qrnn", "a3c", "polgrad_rnn", "cem") + _BASELINES
 
 
 def run_alg(cfg: Config):
-    """Dispatch on --trainer."""
+    """Dispatch on --trainer; with --mesh_shape or --num_processes, on
+    every local rank of the run (``run_sharded``)."""
     name = cfg.trainer
-    if cfg.num_processes > 1:
-        raise NotImplementedError("multi-process training is not ported "
-                                  "yet (ROADMAP queue 1, item 11)")
     if cfg.single_agent and name not in ("qlearn", "qrnn"):
         raise ValueError(
             "--single_agent flattens the action space to one 2^I-way "
@@ -29,6 +30,34 @@ def run_alg(cfg: Config):
     if name not in _PORTED:
         raise ValueError(f"unknown trainer {name!r}; choose from "
                          f"{_PORTED}")
+    if cfg.mesh_shape or cfg.num_processes > 1:
+        return run_sharded(cfg)
+    return _run(cfg)
+
+
+def run_sharded(cfg: Config, backend: str | None = None,
+                share_card: bool = False,
+                timeout_s: float = parallel.dist.TIMEOUT_S):
+    """``cfg``'s run on every local rank, each with its shard of the
+    envs; returns rank 0's result.  The world is ``--mesh_shape``'s dp x
+    mp (one rank a process when only --num_processes is given), NCCL
+    with one card a rank unless ``--platform=cpu`` (gloo).  ``backend``
+    and ``share_card`` (every rank on cuda:0, gloo only) serve a check
+    of the sharded path on one card."""
+    dp, mp = parallel.mesh_dims(cfg.mesh_shape) if cfg.mesh_shape \
+        else (max(cfg.num_processes, 1), 1)
+    cpu = cfg.platform == "cpu"
+    return parallel.launch(
+        _run, (cfg,), world_size=dp * mp, mesh_shape=f"{dp},{mp}",
+        backend=backend or ("gloo" if cpu else "nccl"),
+        device_type="cpu" if cpu else "cuda",
+        num_processes=max(cfg.num_processes, 1),
+        process_id=cfg.process_id, coordinator=cfg.coordinator,
+        share_card=share_card, timeout_s=timeout_s)
+
+
+def _run(cfg: Config):
+    name = cfg.trainer
     if cfg.debug:
         # the JAX package traps NaNs inside its jitted programs; autograd's
         # anomaly mode raises on a NaN in a backward pass
@@ -40,4 +69,4 @@ def run_alg(cfg: Config):
     return mod.run(cfg.derive())
 
 
-__all__ = ["run_alg"]
+__all__ = ["run_alg", "run_sharded"]

@@ -27,6 +27,13 @@ are fetched once an episode.  The nets run in float32 (TF32 off).
 Random draws come from the state's ``torch.Generator``, not threefry
 keys, so only draw-free paths (greedy, BC) match the JAX package step
 for step.  ``--render`` draws a greedy episode of ``policy_step``.
+
+On a sharded run (``parallel/dist.py``) each rank rolls out its envs
+(with the exploration draws of the global batch, and its own expert
+actions), the window's loss is a mean over the rank's envs, so the mean
+of the ranks' gradients (one all-reduce before the clip) is the
+gradient of the global loss; ``norm_adv`` standardises with the global
+moments, and the statistics are the ranks' means.
 """
 
 from __future__ import annotations
@@ -38,13 +45,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from ..config import Config
 from ..envs.env import EnvState
-from ..envs.structs import SimState
 from ..models.nets import A3CNet, ConvGRUA3CNet
 from ..ops.discount import gae
-from .common import (build_env, handle_modes, make_expert_action,
-                     refresh_schedule, validate_telemetry, validation_hook)
+from .common import (build_env, env_shard, env_state_dict, handle_modes,
+                     load_env_state, make_expert_action, refresh_schedule,
+                     validate_telemetry, validation_hook)
 from .exploration import anneal, entropy, sigmoid_decision, sigmoid_greedy
 
 F32 = torch.float32
@@ -63,10 +71,11 @@ class A3CTS:
     generator: torch.Generator
 
     def state_dict(self) -> dict:
+        """The global state (the env, obs and carry of every rank)."""
         return {"net": self.net.state_dict(), "opt": self.opt.state_dict(),
-                "sim": dict(vars(self.env.sim)),
-                "history": self.env.history, "obs": self.obs,
-                "gru": self.gru, "step": self.step,
+                **env_state_dict(self.env),
+                "obs": parallel.all_gather(self.obs),
+                "gru": parallel.all_gather(self.gru, 0), "step": self.step,
                 "episode": self.episode,
                 "generator": self.generator.get_state()}
 
@@ -76,10 +85,9 @@ class A3CTS:
         dev = self.obs.device
         self.net.load_state_dict(sd["net"])
         self.opt.load_state_dict(sd["opt"])
-        sim = SimState(**{k: None if v is None else v.to(dev)
-                          for k, v in sd["sim"].items()})
-        self.env = self.env.replace(sim=sim, history=sd["history"].to(dev))
-        self.obs, self.gru = sd["obs"].to(dev), sd["gru"].to(dev)
+        self.env = load_env_state(self.env, sd, dev)
+        self.obs = parallel.shard(sd["obs"]).to(dev)
+        self.gru = parallel.shard(sd["gru"], 0).to(dev)
         self.step, self.episode = int(sd["step"]), int(sd["episode"])
         self.generator.set_state(sd["generator"].cpu())
 
@@ -117,10 +125,23 @@ def window_lr(cfg: Config, updates: int,
     return float(lr)
 
 
-def normalize_advantages(adv: torch.Tensor) -> torch.Tensor:
+def normalize_advantages(adv: torch.Tensor, eps: float = 1e-6
+                         ) -> torch.Tensor:
     """--norm_adv: standardise a window's advantages with the population
-    std (``jnp.std``'s)."""
-    return (adv - adv.mean()) / (adv.std(correction=0) + 1e-6)
+    std (``jnp.std``'s); on a sharded run with the mean and std of all
+    ranks' advantages (two passes, each one all-reduce)."""
+    if parallel.dp_size() == 1:
+        return (adv - adv.mean()) / (adv.std(correction=0) + eps)
+    n = adv.numel() * parallel.dp_size()
+    mean = parallel.all_sum(adv.sum()) / n
+    var = parallel.all_sum(torch.square(adv - mean).sum()) / n
+    return (adv - mean) / (torch.sqrt(var) + eps)
+
+
+def all_reduce_grads(params) -> None:
+    """Replace each parameter's gradient by its mean over the ranks (a
+    no-op unsharded)."""
+    parallel.all_reduce([p.grad for p in params], "mean")
 
 
 def sigmoid_bce(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -132,6 +153,7 @@ def sigmoid_bce(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def make_fns(cfg: Config, benv, topo) -> A3CFns:
     B = benv.n_envs
     dev = benv.device
+    shard = env_shard(benv)
     validate = cfg.mode == "validate"
     expert_action = make_expert_action(cfg, benv, topo)
     reward_scale = float(np.float32(cfg.reward_scale))
@@ -168,7 +190,7 @@ def make_fns(cfg: Config, benv, topo) -> A3CFns:
                     a = ea
                 else:
                     a = sigmoid_decision(ts.generator, scores, eps,
-                                         cfg.exploration)
+                                         cfg.exploration, shard=shard)
                 ts.env, ts.obs, rew, done, _ = benv.step_autoreset_lazy(
                     ts.env, a.T.contiguous())
                 # the carry restarts at an env's autoreset
@@ -211,7 +233,7 @@ def make_fns(cfg: Config, benv, topo) -> A3CFns:
         carry: the bootstrap value, GAE, one clipped Adam step on the
         replayed window, ``step += batch_size``.  Returns (loss, mean
         scaled reward, policy loss, value loss, entropy) as device
-        scalars."""
+        scalars, this rank's (``run_episode`` reduces them)."""
         with torch.no_grad():
             _, v_boot, _ = forward(ts.net, flat_bf(ts.obs), ts.gru)
             rew_seq = seq["rew"] / reward_scale
@@ -234,6 +256,7 @@ def make_fns(cfg: Config, benv, topo) -> A3CFns:
                             seq["done"], carry0, expert_seq, anchor_w)
         ts.opt.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads(ts.net.parameters())
         grads = [p.grad for p in ts.net.parameters()]
         # optax.clip_by_global_norm: scale by max / norm when norm >= max
         gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
@@ -261,12 +284,13 @@ def make_fns(cfg: Config, benv, topo) -> A3CFns:
     def run_episode(ts: A3CTS):
         """``episode_len // batch_size`` windows, then the episode count
         advances and the carry is zeroed.  Returns the means over the
-        windows of (loss, mean reward, policy loss, value loss, entropy)
-        as floats, fetched once."""
+        windows (and the ranks) of (loss, mean reward, policy loss, value
+        loss, entropy) as floats, fetched once."""
         outs = [torch.stack(run_window(ts)) for _ in range(windows)]
         ts.episode += 1
         ts.gru = torch.zeros_like(ts.gru)
-        return tuple(torch.stack(outs).mean(0).tolist())
+        means = parallel.all_reduce([torch.stack(outs).mean(0)], "mean")[0]
+        return tuple(means.tolist())
 
     def greedy_episode(ts: A3CTS):
         """A greedy episode from a fresh reset of a copy of the training
@@ -296,6 +320,7 @@ def make_fns(cfg: Config, benv, topo) -> A3CFns:
                     lts.append(info["light_times"])
                 alive = alive & ~done
         onep = n1.to(F32) / (cfg.episode_len * I * B)
+        total, onep = parallel.all_reduce([total, onep], "mean")
         return total, env, onep, torch.stack(lts) if validate else None
 
     return A3CFns(rollout=rollout, loss_fn=loss_fn, update=update,

@@ -10,6 +10,11 @@ opens the direction pair with more cars: ``phase = (occupancy .
 [1, 1, -1, -1]) < 0``, held for ``spacing`` agent steps; spacedgreedy is
 the same policy.  An episode is a host loop of lazy-autoreset steps whose
 statistics stay on the device and are fetched once per episode.
+
+On a sharded run (``parallel/dist.py``) each rank steps its shard of the
+envs (the random policy draws the global batch's actions and keeps its
+own); the episode's statistics and the validate telemetry are those of
+all ranks' envs, and rank 0 writes the telemetry.
 """
 
 from __future__ import annotations
@@ -19,9 +24,11 @@ import os
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import Config
 from ..envs.fast_core import cars_on_roads, cars_per_road
-from .common import build_env, render_episode, validate_telemetry
+from .common import (build_env, env_shard, render_episode,
+                     validate_telemetry)
 from ..utils.stats import forever, print_running_stats, write_data
 
 F32 = torch.float32
@@ -32,11 +39,14 @@ RAW_PHASE = ("random", "fixed", "greedy", "spacedgreedy")
 
 def make_policies(cfg: Config, benv, topo) -> dict:
     I, B, dev = benv.n_intersections, benv.n_envs, benv.device
+    base, n_global = env_shard(benv)
     weights = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=F32, device=dev)
 
     def random_policy(t, gen, env_state, held):
-        return torch.randint(0, 2, (I, B), dtype=I32, generator=gen,
-                             device=dev), held
+        # the global batch's draws, this shard's envs
+        return torch.randint(0, 2, (I, n_global), dtype=I32,
+                             generator=gen, device=dev)[:, base:base + B], \
+            held
 
     def const0(t, gen, env_state, held):
         return torch.zeros((I, B), dtype=I32, device=dev), held
@@ -71,6 +81,7 @@ def episode_runner(cfg: Config, benv, policy):
     sum of batch-mean rewards, normalised with ``print_avg``), the
     counts of 1- and 0-actions, the cars left on the roads per env, and
     in validate mode the light times of every step (episode_len, I, B).
+    The scalars are over all ranks' envs, the light times this rank's.
     ``run_one(env_state, gen)`` resets first."""
     validate = cfg.mode == "validate"
     I, B, dev = benv.n_intersections, benv.n_envs, benv.device
@@ -90,15 +101,17 @@ def episode_runner(cfg: Config, benv, policy):
             n1 = n1 + a.sum()
             if validate:
                 lts.append(info["light_times"])
-        n_actions = cfg.episode_len * I * B
-        total, n1 = float(total), int(n1)
+        n_actions = cfg.episode_len * I * benv.n_global
+        total = parallel.all_reduce([total], "mean")[0]
+        total, n1 = float(total), int(parallel.all_sum(n1))
         if cfg.print_avg:
             if cfg.gamma == 1:
                 total = total / cfg.episode_len
             else:
                 total = total / ((cfg.gamma ** cfg.episode_len - 1)
                                  / (cfg.gamma - 1))
-        unfinished = float(cars_per_road(env_state.sim).sum()) / B
+        unfinished = float(parallel.all_sum(
+            cars_per_road(env_state.sim).sum())) / benv.n_global
         return (env_state, total, n1, n_actions - n1, unfinished,
                 torch.stack(lts) if validate else None)
 
@@ -157,7 +170,7 @@ def run(cfg: Config, trainer: str | None = None):
                                max_iterations=cfg.total_episodes)
     if cfg.interactive:
         return data
-    if cfg.mode == "validate":
+    if cfg.mode == "validate" and parallel.is_primary():
         os.makedirs(cfg.logdir, exist_ok=True)
         write_data(cfg, *data, outdir=cfg.logdir)
     return data

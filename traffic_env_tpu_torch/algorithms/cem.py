@@ -12,6 +12,11 @@ The population is a batch axis: candidate k runs on envs ``k * tries``
 to ``(k + 1) * tries - 1`` and its score is the mean over them
 (``num_tries``), so a whole generation is one lockstep episode of
 ``SAMPLE_SIZE * num_tries`` envs on the window kernel.
+
+On a sharded run (``parallel/dist.py``) those envs shard on dp: each
+rank runs the candidates' envs it holds, the returns are gathered, and
+every rank refits from the same ``RandomState`` thetas alike; rank 0
+writes ``weights.json``.
 """
 
 from __future__ import annotations
@@ -22,8 +27,9 @@ import os
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import Config
-from .common import build_env, refresh_env_schedule
+from .common import build_env, env_shard, refresh_env_schedule
 
 I32 = torch.int32
 
@@ -48,16 +54,18 @@ def make_eval(cfg: Config, benv, sample_size: int = SAMPLE_SIZE):
     ``print_discounted``, each the mean over the candidate's envs.  The
     episode starts from a full reset of ``env``, or, when ``obs`` is
     given, from ``env`` already reset with that observation; it updates
-    ``env`` in place."""
+    ``env`` in place.  On a sharded run ``env`` is the rank's shard and
+    ``ys`` those of every candidate, alike on every rank."""
     I, B = benv.n_intersections, benv.n_envs
     dev = benv.device
-    tries = max(1, B // sample_size)
+    base, n_global = env_shard(benv)
+    tries = max(1, n_global // sample_size)
     gamma = np.float32(cfg.gamma)
 
     def evaluate(env, thetas, obs=None):
         reps = torch.repeat_interleave(
             torch.as_tensor(thetas, dtype=torch.float32, device=dev),
-            tries, dim=0)                                  # (B, obs_dim, I)
+            tries, dim=0)[base:base + B]               # (B, obs_dim, I)
         if obs is None:
             env, obs = benv.reset(env)
         total = torch.zeros((B, I), dtype=torch.float32, device=dev)
@@ -70,6 +78,7 @@ def make_eval(cfg: Config, benv, sample_size: int = SAMPLE_SIZE):
                 total = total + rew.T * (float(mult) if cfg.print_discounted
                                          else 1.0)
                 mult = np.float32(mult * gamma)
+        total = parallel.all_gather(total, 0)
         return env, total.reshape(-1, tries, I).mean(dim=1)
 
     return evaluate
@@ -136,12 +145,13 @@ def run(cfg: Config):
     iteration)."""
     benv, evaluate, shape, n_elite, rng, env = _population(cfg)
     wpath = os.path.join(cfg.logdir, "weights.json")
-    os.makedirs(cfg.logdir, exist_ok=True)
     try:
         with open(wpath) as f:
             th_mean = np.reshape(np.asarray(json.load(f), np.float32), shape)
     except (OSError, ValueError):
         th_mean = np.zeros(shape, np.float32)
+    # rank 0's logdir holds the weights
+    th_mean = parallel.broadcast_object(th_mean)
     th_std = np.ones_like(th_mean) * INITIAL_STD
     means = []
     try:
@@ -159,8 +169,10 @@ def run(cfg: Config):
                 break
     except KeyboardInterrupt:
         pass
-    with open(wpath, "w") as f:
-        json.dump(np.asarray(th_mean, np.float64).reshape(-1).tolist(), f,
-                  indent=4, separators=(",", ": "))
-    print("Saved to", wpath)
+    if parallel.is_primary():
+        os.makedirs(cfg.logdir, exist_ok=True)
+        with open(wpath, "w") as f:
+            json.dump(np.asarray(th_mean, np.float64).reshape(-1).tolist(),
+                      f, indent=4, separators=(",", ": "))
+        print("Saved to", wpath)
     return th_mean, means

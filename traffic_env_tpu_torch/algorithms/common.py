@@ -5,6 +5,11 @@ sigmoid-policy learners, the train/validate dispatch with ``--render``,
 the logdir (wipe and settings.json on a fresh run, restore on
 --restore), checkpoints, and validation bookkeeping with the
 validate-mode telemetry.
+
+On the ranks of a sharded run (``parallel/dist.py``) ``build_env``
+builds the rank's shard of the envs; rank 0 alone writes the logdir,
+and a checkpoint holds the global state (``env_state_dict``), so it
+restores under any world size.
 """
 
 from __future__ import annotations
@@ -16,25 +21,31 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import (Config, derive_spawn_rate, entry_spec,
                       explicit_cli_flags)
 from ..envs.fast_core import cars_per_road
+from ..envs.env import EnvState
 from ..envs.rollout import BatchedEnv, make_batched_env
 from ..envs.spawn import ScheduleStream
+from ..envs.structs import SimState
 from ..interop import load_teacher, schedule_from_arrays
 from ..render import make_renderer
 from ..topology import GridRoad
 from ..utils.checkpoint import (Checkpointer, load_settings, remkdir,
                                 snapshot_settings)
-from ..utils.metrics import MetricWriter
+from ..utils.metrics import MetricWriter, NullWriter
 from ..utils.stats import forever, print_running_stats, write_data
 
 
 def device_of(cfg: Config) -> torch.device:
     """The device named by --platform: "" (the default) and "cuda" mean
-    the CUDA card, "cpu" the plain PyTorch window on the CPU."""
+    the CUDA card (the rank's own card in a sharded run), "cpu" the
+    plain PyTorch window on the CPU."""
     if cfg.platform in ("", "cuda"):
-        return torch.device("cuda")
+        dev = parallel.device()
+        return dev if dev is not None and dev.type == "cuda" \
+            else torch.device("cuda")
     if cfg.platform == "cpu":
         return torch.device("cpu")
     raise ValueError(f"--platform={cfg.platform!r}: the port runs on cuda "
@@ -71,34 +82,46 @@ def exact_max_per_tick(cfg: Config) -> int:
 
 def build_env(cfg: Config, n_envs: int | None = None, core: str = "window"
               ) -> tuple[GridRoad, Config, BatchedEnv]:
-    """The batched traffic env for ``cfg`` on ``device_of(cfg)`` and
-    ``core`` ("window", or "fast" for the per-tick core): the grid with
-    its entry mask, the spawn rate derived from its open sides, and
-    device Poisson spawns, or with ``--exact`` the reference's per-env
-    MT19937 arrival streams (seeds ``cfg.seed + i``), served by a host
+    """The batched traffic env of ``n_envs`` (``cfg.num_envs`` by
+    default) for ``cfg`` on ``device_of(cfg)`` and ``core`` ("window",
+    or "fast" for the per-tick core): the grid with its entry mask, the
+    spawn rate derived from its open sides, and device Poisson spawns,
+    or with ``--exact`` the reference's per-env MT19937 arrival streams
+    (seed ``cfg.seed + i`` for global env i), served by a host
     ``ScheduleStream`` to the schedule mode, ``exact_max_per_tick`` rows
-    a tick."""
+    a tick.  On a sharded run the env is this rank's shard
+    (``parallel.env_slice``), which raises when the envs do not divide
+    over dp."""
     if cfg.env_name == "cartpole":
         raise NotImplementedError("the CartPole fixture is not ported yet "
                                   "(ROADMAP queue 1, item 10)")
-    if cfg.mesh_shape:
-        raise NotImplementedError("--mesh_shape (multi-GPU) is not ported "
-                                  "yet (ROADMAP queue 1, item 11)")
     topo = GridRoad(cfg.grid_m, cfg.grid_n, cfg.road_length)
     spec = entry_spec(cfg)
     topo.set_entry_mask(spec)
     cfg = derive_spawn_rate(cfg, topo.open_sides(spec))
     n = n_envs or cfg.num_envs
+    base, n_local = parallel.env_slice(n)
+    shard = dict(env_base=base, n_global=n)
     if not cfg.exact:
-        return topo, cfg, make_batched_env(topo, cfg, n,
-                                           device=device_of(cfg), core=core)
+        return topo, cfg, make_batched_env(topo, cfg, n_local,
+                                           device=device_of(cfg), core=core,
+                                           **shard)
     k = exact_max_per_tick(cfg)
-    stream = ScheduleStream(topo, cfg, [cfg.seed + i for i in range(n)],
+    stream = ScheduleStream(topo, cfg,
+                            [cfg.seed + base + i for i in range(n_local)],
                             exact_chunk_ticks(cfg), max_per_tick=k)
-    benv = make_batched_env(topo, cfg, n, on_device_spawns=False,
+    benv = make_batched_env(topo, cfg, n_local, on_device_spawns=False,
                             max_spawns_per_tick=k, device=device_of(cfg),
-                            core=core)
+                            core=core, **shard)
     return topo, cfg, attach_schedule_stream(benv, stream)
+
+
+def env_shard(benv) -> tuple[int, int]:
+    """(env_base, n_global): ``benv``'s envs in the global batch of a
+    sharded run; a stand-in env that names only ``n_envs`` is the whole
+    batch."""
+    return (getattr(benv, "env_base", 0),
+            getattr(benv, "n_global", 0) or benv.n_envs)
 
 
 def attach_schedule_stream(benv: BatchedEnv, stream: ScheduleStream
@@ -184,18 +207,22 @@ def handle_modes(cfg: Config, make_state: Callable, train: Callable,
     returns the greedy policy ``(obs, carry) -> (action (I, B),
     carry)`` that ``--render`` draws an episode of before the
     validation episodes (``render_greedy``)."""
+    primary = parallel.is_primary()
     if cfg.restore:
         # settings.json supplies the defaults; a field given explicitly
         # on the command line, or differing from the dataclass default,
-        # wins over the snapshot
-        defaults = Config()
-        explicit = explicit_cli_flags(cfg)
-        overrides = {f.name: getattr(cfg, f.name)
-                     for f in dataclasses.fields(Config)
-                     if f.name in explicit
-                     or getattr(cfg, f.name) != getattr(defaults, f.name)}
-        cfg = load_settings(cfg.logdir).replace(**overrides).derive()
-    else:
+        # wins over the snapshot.  Rank 0 reads it for every rank.
+        if primary:
+            defaults = Config()
+            explicit = explicit_cli_flags(cfg)
+            overrides = {f.name: getattr(cfg, f.name)
+                         for f in dataclasses.fields(Config)
+                         if f.name in explicit
+                         or getattr(cfg, f.name) != getattr(defaults,
+                                                            f.name)}
+            cfg = load_settings(cfg.logdir).replace(**overrides).derive()
+        cfg = parallel.broadcast_object(cfg)
+    elif primary:
         remkdir(cfg.logdir)
         snapshot_settings(cfg, cfg.logdir)
     ctx, state = make_state(cfg)
@@ -225,9 +252,11 @@ def handle_modes(cfg: Config, make_state: Callable, train: Callable,
             else cfg.total_episodes)
         if cfg.interactive:
             return data
-        write_data(cfg, *data, outdir=cfg.logdir)
+        if primary:
+            write_data(cfg, *data, outdir=cfg.logdir)
         return data
-    writer = MetricWriter(cfg.logdir)
+    # other ranks write nothing (nor import tensorboard)
+    writer = MetricWriter(cfg.logdir) if primary else NullWriter()
     try:
         return train(cfg, ctx, state, writer, ckpt)
     finally:
@@ -243,20 +272,25 @@ def render_episode(cfg: Config, benv: BatchedEnv, env, obs, act):
     ``act(t, env, obs) -> (I, B)`` actions.  Returns the env state after
     the episode."""
     topo = GridRoad(cfg.grid_m, cfg.grid_n, cfg.road_length)
-    rend = make_renderer(cfg, topo)
+    # on a sharded run every rank steps the episode and rank 0 draws
+    rend = make_renderer(cfg, topo) if parallel.is_primary() else None
     ticks_mode = cfg.render_ticks
     if ticks_mode and benv.step_autoreset_lazy_ticks is None:
-        _, _, benv = build_env(cfg, benv.n_envs, core="fast")
+        _, _, benv = build_env(cfg, benv.n_global, core="fast")
     step = benv.step_autoreset_lazy_ticks if ticks_mode \
         else benv.step_autoreset_lazy
     for t in range(cfg.episode_len):
         a = act(t, env, obs)
         if ticks_mode:
             env, obs, _, _, _, ticks = step(env, a)
-            rend.add_ticks(ticks)
+            if rend is not None:
+                rend.add_ticks(ticks)
         else:
             env, obs, _, _, _ = step(env, a)
-            rend.add(env.sim)
+            if rend is not None:
+                rend.add(env.sim)
+    if rend is None:
+        return env
     gif = rend.finish(duration_ms=50 if ticks_mode else 250)
     print(f"rendered {len(rend.frames)} frames to {rend.outdir}"
           + (f" ({gif})" if gif else ""))
@@ -309,22 +343,45 @@ def validate_telemetry(cfg: Config, benv, env_after, trip_hist_before,
     """The validate-mode info dict the stats loop consumes: action
     fractions, the light times of the episode's phase changes, the trip
     times drained from the histogram's growth, and the cars left on the
-    roads per env.  None outside validate mode."""
+    roads per env, over the global batch: the light times (T, I, B) are
+    gathered and the counts summed over the ranks; ``ones_fraction`` is
+    the caller's global one.  None outside validate mode."""
     if cfg.mode != "validate":
         return None
     sim = env_after.sim
     trip_times: list = []
     if sim.trip_hist is not None and trip_hist_before is not None:
-        counts = (sim.trip_hist - trip_hist_before).sum(1).cpu().numpy()
+        counts = parallel.all_sum(
+            (sim.trip_hist - trip_hist_before).sum(1)).cpu().numpy()
         trip_times = np.repeat(np.arange(len(counts)) * cfg.rate,
                                counts).tolist()
     lt_list: list = []
     if light_times is not None:
         # a light time is emitted only when the phase changed; zeros
         # mean "no switch this window"
-        lt = light_times.cpu().numpy()
+        lt = parallel.all_gather(light_times).cpu().numpy()
         lt_list = lt[lt != 0].tolist()
-    unfinished = float(cars_per_road(sim).sum() / benv.n_envs)
+    unfinished = float(parallel.all_sum(cars_per_road(sim).sum())
+                       / benv.n_global)
     return {"onep": ones_fraction, "zerop": 1.0 - ones_fraction,
             "light_times": lt_list, "trip_times": trip_times,
             "unfinished": unfinished}
+
+
+def env_state_dict(env: EnvState) -> dict:
+    """The checkpoint's env entries, ``{"sim": {leaf: tensor},
+    "history": tensor}``: on a sharded run every leaf is the global
+    batch, gathered from the ranks (every rank takes part)."""
+    return {"sim": {k: None if v is None else parallel.all_gather(v)
+                    for k, v in vars(env.sim).items()},
+            "history": parallel.all_gather(env.history)}
+
+
+def load_env_state(env: EnvState, sd: dict, dev) -> EnvState:
+    """``env`` with the checkpoint's env entries (``env_state_dict``'s,
+    tensors on any device), this rank's shard of them on ``dev``."""
+    sim = SimState(**{k: None if v is None else
+                      parallel.shard(v).to(dev)
+                      for k, v in sd["sim"].items()})
+    return env.replace(sim=sim,
+                       history=parallel.shard(sd["history"]).to(dev))

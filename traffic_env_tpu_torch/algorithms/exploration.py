@@ -12,7 +12,10 @@
   ``entropy`` is the mean Bernoulli score entropy summary.
 
 Random draws come from an explicit ``torch.Generator`` on the scores'
-device.
+device.  On the ranks of a sharded run (``shard = (env_base,
+n_global)``) each rank draws the global batch's shape from a generator
+seeded alike on every rank and keeps its own rows, so its envs draw
+what they draw in one batch.
 """
 
 from __future__ import annotations
@@ -47,21 +50,36 @@ def greedy_from_scores(scores: torch.Tensor) -> torch.Tensor:
     return torch.argmax(scores, dim=-1).to(torch.int32)
 
 
+def sharded_draw(draw, shape, shard: tuple[int, int] | None = None):
+    """``draw(shape)``, or on a rank's shard ``(env_base, n_global)``
+    of the leading (batch) axis, rows ``env_base ..`` of ``draw`` of the
+    global shape."""
+    shape = tuple(shape)
+    if shard is None or shard[1] == shape[0]:
+        return draw(shape)
+    base, n_global = shard
+    return draw((n_global,) + shape[1:])[base:base + shape[0]]
+
+
 def softmax_decision(generator: torch.Generator, scores: torch.Tensor,
-                     eps: float, mode: str = "e_greedy") -> torch.Tensor:
-    """Explore action (int32) from a (..., n_choices) score tensor."""
+                     eps: float, mode: str = "e_greedy",
+                     shard: tuple[int, int] | None = None) -> torch.Tensor:
+    """Explore action (int32) from a (B, ..., n_choices) score tensor;
+    ``shard`` as ``sharded_draw``'s."""
     greedy = greedy_from_scores(scores)
     n = scores.shape[-1]
     dev = scores.device
     if mode == "e_greedy":
-        rand = torch.randint(0, n, greedy.shape, generator=generator,
-                             device=dev, dtype=torch.int32)
-        cond = torch.rand(greedy.shape, generator=generator,
-                          device=dev) < eps
+        rand = sharded_draw(lambda sh: torch.randint(
+            0, n, sh, generator=generator, device=dev, dtype=torch.int32),
+            greedy.shape, shard)
+        cond = sharded_draw(lambda sh: torch.rand(
+            sh, generator=generator, device=dev), greedy.shape, shard) < eps
         return torch.where(cond, rand, greedy)
     if mode == "boltzman":
         # Gumbel-max sampling of softmax(scores / temperature)
-        u = torch.rand(scores.shape, generator=generator, device=dev)
+        u = sharded_draw(lambda sh: torch.rand(
+            sh, generator=generator, device=dev), scores.shape, shard)
         gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
         return torch.argmax(scores / eps + gumbel, dim=-1).to(torch.int32)
     raise ValueError(f"Unknown exploration type {mode}")
@@ -69,18 +87,21 @@ def softmax_decision(generator: torch.Generator, scores: torch.Tensor,
 
 def sigmoid_decision(generator: torch.Generator, scores: torch.Tensor,
                      eps: float, mode: str = "e_greedy",
-                     uniform: torch.Tensor | None = None) -> torch.Tensor:
+                     uniform: torch.Tensor | None = None,
+                     shard: tuple[int, int] | None = None) -> torch.Tensor:
     """Bernoulli per-agent heads: int32 0/1, 1 where a uniform draw from
     ``generator`` (or the given ``uniform``) is below the probability,
-    for e_greedy ``eps * 0.5 + (1 - eps) * sigmoid(scores)``."""
+    for e_greedy ``eps * 0.5 + (1 - eps) * sigmoid(scores)``; ``shard``
+    as ``sharded_draw``'s."""
     probs = torch.sigmoid(scores)
     if mode == "e_greedy":
         probs = eps * 0.5 + (1 - eps) * probs
     elif mode != "proportional":
         raise ValueError(f"Unknown exploration type {mode}")
     if uniform is None:
-        uniform = torch.rand(probs.shape, generator=generator,
-                             device=scores.device)
+        uniform = sharded_draw(lambda sh: torch.rand(
+            sh, generator=generator, device=scores.device), probs.shape,
+            shard)
     return (uniform < probs).to(torch.int32)
 
 

@@ -23,6 +23,12 @@ once.  Random draws come from the state's ``torch.Generator``, so only
 draw-free paths (greedy, BC) match the JAX package step for step.  The
 net runs in float32 (TF32 off).  ``--render`` draws a greedy episode of
 ``policy_step``.
+
+On a sharded run (``parallel/dist.py``) each rank rolls out its envs
+with the exploration draws of the global batch; ``epr`` is standardised
+with the global moments, each episode's gradient is the mean of the
+ranks' (one all-reduce) before it is summed into the accumulator, and
+the statistics are the ranks' means.
 """
 
 from __future__ import annotations
@@ -33,14 +39,15 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import Config
 from ..envs.env import EnvState
-from ..envs.structs import SimState
 from ..models.nets import PolGradNet
 from ..ops.discount import discount
-from .a3c import sigmoid_bce, window_lr
-from .common import (build_env, handle_modes, make_expert_action,
-                     refresh_schedule, validate_telemetry, validation_hook)
+from .a3c import normalize_advantages, sigmoid_bce, window_lr
+from .common import (build_env, env_shard, env_state_dict, handle_modes,
+                     load_env_state, make_expert_action, refresh_schedule,
+                     validate_telemetry, validation_hook)
 from .exploration import anneal, sigmoid_decision, sigmoid_greedy
 
 F32 = torch.float32
@@ -59,10 +66,10 @@ class PGTS:
     generator: torch.Generator
 
     def state_dict(self) -> dict:
+        """The global state (the env of every rank)."""
         return {"net": self.net.state_dict(), "opt": self.opt.state_dict(),
                 "grad_acc": list(self.grad_acc), "n_acc": self.n_acc,
-                "sim": dict(vars(self.env.sim)),
-                "history": self.env.history, "step": self.step,
+                **env_state_dict(self.env), "step": self.step,
                 "episode": self.episode,
                 "generator": self.generator.get_state()}
 
@@ -75,9 +82,7 @@ class PGTS:
         for acc, g in zip(self.grad_acc, sd["grad_acc"]):
             acc.copy_(g)
         self.n_acc = int(sd["n_acc"])
-        sim = SimState(**{k: None if v is None else v.to(dev)
-                          for k, v in sd["sim"].items()})
-        self.env = self.env.replace(sim=sim, history=sd["history"].to(dev))
+        self.env = load_env_state(self.env, sd, dev)
         self.step, self.episode = int(sd["step"]), int(sd["episode"])
         self.generator.set_state(sd["generator"].cpu())
 
@@ -100,6 +105,7 @@ class PGCtx(NamedTuple):
 def make_fns(cfg: Config, benv, topo) -> PGFns:
     I, B = benv.n_intersections, benv.n_envs
     dev = benv.device
+    shard = env_shard(benv)
     validate = cfg.mode == "validate"
     T = cfg.episode_len
     expert_action = make_expert_action(cfg, benv, topo)
@@ -123,7 +129,8 @@ def make_fns(cfg: Config, benv, topo) -> PGFns:
         elif greedy:
             a = sigmoid_greedy(scores)
         else:
-            a = sigmoid_decision(ts.generator, scores, eps, cfg.exploration)
+            a = sigmoid_decision(ts.generator, scores, eps, cfg.exploration,
+                                 shard=shard)
         return a, ea, carry
 
     def collect(ts: PGTS, env: EnvState, obs, eps: float, bc: bool):
@@ -180,7 +187,7 @@ def make_fns(cfg: Config, benv, topo) -> PGFns:
             epr = discount(seq["rew"], cfg.gamma, cfg.use_avg,
                            nd=1.0 - seq["done"].to(F32))
             if cfg.norm_adv or not cfg.use_avg:
-                epr = (epr - epr.mean()) / (epr.std(correction=0) + EPS)
+                epr = normalize_advantages(epr, EPS)
             if bc:
                 # BC phase: unit-weight cross-entropy on the expert's
                 # actions (the actions taken)
@@ -193,7 +200,9 @@ def make_fns(cfg: Config, benv, topo) -> PGFns:
         loss = loss_fn(ts.net, seq["obs"], seq["act"], epr, expert_seq,
                        anchor_w)
         params = list(ts.net.parameters())
-        for acc, g in zip(ts.grad_acc, torch.autograd.grad(loss, params)):
+        grads = parallel.all_reduce(torch.autograd.grad(loss, params),
+                                    "mean")
+        for acc, g in zip(ts.grad_acc, grads):
             acc.add_(g)
         ts.n_acc += 1
         if ts.n_acc >= cfg.batch_size:
@@ -214,13 +223,16 @@ def make_fns(cfg: Config, benv, topo) -> PGFns:
     def run_episode(ts: PGTS, start=None):
         """One episode from a full reset of ``ts.env`` (or from the
         reset ``start = (env, obs)``): ``collect``, then ``update``.
-        Returns (loss, mean reward) as floats, fetched once."""
+        Returns (loss, mean reward), the ranks' means, as floats, fetched
+        once."""
         eps = anneal(cfg.start_eps, cfg.end_eps, cfg.annealing_episodes,
                      ts.episode)
         bc = bool(cfg.bc_episodes) and ts.episode < cfg.bc_episodes
         env, obs = benv.reset(ts.env) if start is None else start
         ts.env, seq = collect(ts, env, obs, eps, bc)
-        return tuple(torch.stack(update(ts, seq, bc)).tolist())
+        stats = parallel.all_reduce([torch.stack(update(ts, seq, bc))],
+                                    "mean")[0]
+        return tuple(stats.tolist())
 
     def greedy_rollout(ts: PGTS, env: EnvState, obs):
         """A greedy episode (rounded sigmoids) from the reset ``(env,
@@ -254,6 +266,7 @@ def make_fns(cfg: Config, benv, topo) -> PGFns:
             total = total / (T if cfg.gamma == 1 else
                              (cfg.gamma ** T - 1) / (cfg.gamma - 1))
         onep = n1.to(F32) / (T * I * B)
+        total, onep = parallel.all_reduce([total, onep], "mean")
         return total, env, onep, torch.stack(lts) if validate else None
 
     def greedy_episode(ts: PGTS):

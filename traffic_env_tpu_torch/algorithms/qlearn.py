@@ -22,6 +22,14 @@ episode and before every validation.
 The nets run in float32, as the JAX package states for every net:
 ``make_state`` turns TF32 off for cuDNN convolutions and CUDA matmuls,
 which torch would otherwise run in TF32 on the card.
+
+On a sharded run (``parallel/dist.py``) each rank acts for its envs with
+the exploration draws of the global batch, and every rank draws the
+same replay sample over the global env axis, which the all-gather of
+``FrameReplay.sample_at`` makes whole on every rank: every rank then
+runs the same ``td_update`` on the same batch, and the parameters stay
+those of the unsharded run with no gradient all-reduce.  The episode
+statistics are reduced over the ranks.
 """
 
 from __future__ import annotations
@@ -33,13 +41,14 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import Config
 from ..envs.env import EnvState
 from ..envs.extra_wrappers import ungspace_actions
-from ..envs.structs import SimState
 from ..models.nets import ConvQNet, QNet
-from .common import (build_env, handle_modes, refresh_schedule,
-                     validate_telemetry, validation_hook)
+from .common import (build_env, env_shard, env_state_dict, handle_modes,
+                     load_env_state, refresh_schedule, validate_telemetry,
+                     validation_hook)
 from .exploration import exploration_param, softmax_decision
 from .replay import FrameReplay
 
@@ -64,13 +73,14 @@ class QLearnTS:
     generator: torch.Generator
 
     def state_dict(self) -> dict:
+        """The global state (the env, obs and replay of every rank)."""
         return {"main": self.main.state_dict(),
                 "chooser": self.chooser.state_dict(),
                 "target": self.target.state_dict(),
                 "opt": self.opt.state_dict(),
                 "replay": self.replay.state_dict(),
-                "sim": dict(vars(self.env.sim)),
-                "history": self.env.history, "obs": self.obs,
+                **env_state_dict(self.env),
+                "obs": parallel.all_gather(self.obs),
                 "step": self.step, "train_steps": self.train_steps,
                 "episode": self.episode, "rho": self.rho,
                 "generator": self.generator.get_state()}
@@ -83,10 +93,8 @@ class QLearnTS:
             getattr(self, name).load_state_dict(sd[name])
         self.opt.load_state_dict(sd["opt"])
         self.replay.load_state_dict(sd["replay"])
-        sim = SimState(**{k: None if v is None else v.to(dev)
-                          for k, v in sd["sim"].items()})
-        self.env = self.env.replace(sim=sim, history=sd["history"].to(dev))
-        self.obs = sd["obs"].to(dev)
+        self.env = load_env_state(self.env, sd, dev)
+        self.obs = parallel.shard(sd["obs"]).to(dev)
         self.step, self.train_steps = int(sd["step"]), int(sd["train_steps"])
         self.episode = int(sd["episode"])
         self.rho = sd["rho"].to(dev)
@@ -110,6 +118,7 @@ class QLearnCtx(NamedTuple):
 def make_fns(cfg: Config, benv) -> QLearnFns:
     I = benv.n_intersections
     dev = benv.device
+    shard = env_shard(benv)
     validate = cfg.mode == "validate"
     if cfg.single_agent:
         # the integer choice decodes to the env's I phase bits, and the
@@ -127,7 +136,8 @@ def make_fns(cfg: Config, benv) -> QLearnFns:
             q = ts.main(obs_bf)                       # (B, heads, choices)
         if greedy:
             return torch.argmax(q, dim=-1).to(I32), q
-        return softmax_decision(ts.generator, q, eps, cfg.exploration), q
+        return softmax_decision(ts.generator, q, eps, cfg.exploration,
+                                shard=shard), q
 
     def td_update(ts: QLearnTS, batch):
         """One SGD step on ``batch`` = (s, a, r, nd, s1), the layout of
@@ -185,11 +195,14 @@ def make_fns(cfg: Config, benv) -> QLearnFns:
 
     def run_episode(ts: QLearnTS):
         """``episode_len`` agent steps; returns (mean reward, mean loss,
-        max predicted Q, max grad norm) as floats, fetched once."""
+        max predicted Q, max grad norm) as floats, fetched once.  The
+        reward is the mean over all ranks' envs; the others every rank
+        computes alike."""
         stats = [agent_step(ts) for _ in range(cfg.episode_len)]
         rews, losses, max_qs, gnorms = (torch.stack(s) for s in zip(*stats))
         ts.episode += 1
-        return tuple(torch.stack([rews.mean(), losses.mean(), max_qs.max(),
+        mean_r = parallel.all_reduce([rews.mean()], "mean")[0]
+        return tuple(torch.stack([mean_r, losses.mean(), max_qs.max(),
                                   gnorms.max()]).tolist())
 
     def greedy_rollout(ts: QLearnTS, env: EnvState, obs):
@@ -198,7 +211,9 @@ def make_fns(cfg: Config, benv) -> QLearnFns:
         (reward, env_final, ones_fraction, light_times): the discounted
         mean reward up to each env's first done, averaged over the
         batch; the final env state; the fraction of 1-actions; and in
-        validate mode the per-step light times (episode_len, I, B)."""
+        validate mode the per-step light times (episode_len, I, B).  The
+        reward and the fraction are over all ranks' envs, the light
+        times this rank's."""
         B = benv.n_envs
         alive = torch.ones(B, dtype=torch.bool, device=dev)
         total = torch.zeros((), dtype=F32, device=dev)
@@ -221,6 +236,7 @@ def make_fns(cfg: Config, benv) -> QLearnFns:
                 lts.append(info["light_times"])
             alive = alive & ~done
         onep = n1.to(F32) / (cfg.episode_len * I * B)
+        total, onep = parallel.all_reduce([total, onep], "mean")
         return total, env, onep, torch.stack(lts) if validate else None
 
     def greedy_episode(ts: QLearnTS):
@@ -265,7 +281,7 @@ def make_state(cfg: Config):
         main = QNet(k * benv.obs_dim, heads, choices,
                     generator=init_gen).to(dev)
     replay = FrameReplay.create(cfg.buffer_size, B, k, benv.obs_dim, heads,
-                                reward_size, dev)
+                                reward_size, dev, n_global=benv.n_global)
     # the hot loop acts on replay-ring stacks (last_stack): seed the ring
     # with the reset's history so that the first steps see exactly the
     # stack the env's history would hold

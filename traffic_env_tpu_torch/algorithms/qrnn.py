@@ -21,6 +21,17 @@ loop on the device; its statistics are fetched once.  Random draws come
 from the state's ``torch.Generator``, so only the greedy episode
 matches the JAX package step for step.  The nets run in float32 (TF32
 off).  ``--render`` draws a greedy episode of ``policy_step``.
+
+On a sharded run (``parallel/dist.py``) each rank rolls out its envs
+with the exploration draws of the global batch, and the episode batch is
+gathered from the ranks before it goes into the replay, which every
+rank keeps whole: every rank then draws the same traces and runs the
+same TD steps, so the parameters stay those of the unsharded run with
+no gradient all-reduce, and a checkpoint holds the replay as it is.
+The TD steps are small (``batch_size`` traces), the gather is one
+episode batch an episode (at 4096 envs on 3x3, 159 MB of observations),
+and a replay sharded by slot would have to follow the slots' owners as
+the ring turns.
 """
 
 from __future__ import annotations
@@ -32,13 +43,14 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import Config
 from ..envs.env import EnvState
 from ..envs.extra_wrappers import ungspace_actions
-from ..envs.structs import SimState
 from ..models.nets import DuelingQRNN
-from .common import (build_env, handle_modes, refresh_schedule,
-                     validate_telemetry, validation_hook)
+from .common import (build_env, env_shard, env_state_dict, handle_modes,
+                     load_env_state, refresh_schedule, validate_telemetry,
+                     validation_hook)
 from .exploration import exploration_param, softmax_decision
 from .replay import EpisodeReplay
 
@@ -59,12 +71,13 @@ class QRnnTS:
     generator: torch.Generator
 
     def state_dict(self) -> dict:
+        """The global state (the env of every rank; the replay is whole
+        on every rank)."""
         return {"main": self.main.state_dict(),
                 "target": self.target.state_dict(),
                 "opt": self.opt.state_dict(),
                 "replay": self.replay.state_dict(),
-                "sim": dict(vars(self.env.sim)),
-                "history": self.env.history, "step": self.step,
+                **env_state_dict(self.env), "step": self.step,
                 "train_steps": self.train_steps, "episode": self.episode,
                 "generator": self.generator.get_state()}
 
@@ -76,9 +89,7 @@ class QRnnTS:
         self.target.load_state_dict(sd["target"])
         self.opt.load_state_dict(sd["opt"])
         self.replay.load_state_dict(sd["replay"])
-        sim = SimState(**{k: None if v is None else v.to(dev)
-                          for k, v in sd["sim"].items()})
-        self.env = self.env.replace(sim=sim, history=sd["history"].to(dev))
+        self.env = load_env_state(self.env, sd, dev)
         self.step, self.train_steps = int(sd["step"]), int(sd["train_steps"])
         self.episode = int(sd["episode"])
         self.generator.set_state(sd["generator"].cpu())
@@ -101,6 +112,7 @@ class QRnnCtx(NamedTuple):
 def make_fns(cfg: Config, benv) -> QRnnFns:
     I, B = benv.n_intersections, benv.n_envs
     dev = benv.device
+    shard = env_shard(benv)
     validate = cfg.mode == "validate"
     if cfg.single_agent:
         # the integer choice decodes to the env's I phase bits, and the
@@ -132,7 +144,8 @@ def make_fns(cfg: Config, benv) -> QRnnFns:
                 q, carry = ts.main(obs_l[-1][:, None], carry)
                 q = q[:, 0]                              # (B, heads, choices)
                 a = torch.argmax(q, dim=-1).to(I32) if greedy else \
-                    softmax_decision(ts.generator, q, eps, cfg.exploration)
+                    softmax_decision(ts.generator, q, eps, cfg.exploration,
+                                     shard=shard)
                 env, obs, rew, done, info = benv.step_autoreset_lazy(
                     env, env_action(a).T.to(I32).contiguous())
                 # the carry restarts at an env's autoreset
@@ -175,15 +188,18 @@ def make_fns(cfg: Config, benv) -> QRnnFns:
         """One episode from a full reset of ``ts.env`` (or from the
         reset ``start = (env, obs)``), stored in the replay; then the TD
         steps once the replay is full.  Returns (mean reward, mean loss,
-        max predicted Q) as floats, fetched once."""
+        max predicted Q) as floats, fetched once; the episode batch and
+        the reward are those of all ranks' envs."""
         eps = exploration_param(cfg, ts.episode)
         env, obs = benv.reset(ts.env) if start is None else start
         ts.env, obs_l, act_l, rew_l, done_l, _ = collect(ts, env, obs, eps)
         d_seq = torch.stack(done_l)                          # (T, B)
         lens = torch.where(d_seq, step_count, T).amin(0).to(I32)
-        r_seq = torch.stack(rew_l, 1)                        # (B, T, R)
-        ts.replay.add_episodes(torch.stack(obs_l, 1), torch.stack(act_l, 1),
-                               r_seq, 1.0 - d_seq.T.to(F32), lens)
+        g = lambda x: parallel.all_gather(x, 0)            # episode-major
+        r_seq = g(torch.stack(rew_l, 1))                     # (B, T, R)
+        ts.replay.add_episodes(g(torch.stack(obs_l, 1)),
+                               g(torch.stack(act_l, 1)), r_seq,
+                               g(1.0 - d_seq.T.to(F32)), g(lens))
         ts.step += T
         if ts.replay.filled >= ts.replay.size:
             stats = [td_train(ts, ts.replay.sample_traces(
@@ -216,6 +232,7 @@ def make_fns(cfg: Config, benv) -> QRnnFns:
             n1 = n1 + env_action(act_l[t]).sum()
             alive = alive & ~done_l[t]
         onep = n1.to(F32) / (T * I * B)
+        total, onep = parallel.all_reduce([total, onep], "mean")
         return total, env, onep, torch.stack(lts) if validate else None
 
     def greedy_episode(ts: QRnnTS):
@@ -236,7 +253,7 @@ def make_state(cfg: Config):
     torch.backends.cuda.matmul.allow_tf32 = False
     topo, cfg, benv = build_env(cfg)
     fns = make_fns(cfg, benv)
-    dev, B, I = benv.device, benv.n_envs, benv.n_intersections
+    dev, I = benv.device, benv.n_intersections
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(cfg.seed))
     env = benv.init(gen)
@@ -249,7 +266,8 @@ def make_state(cfg: Config):
     # the ring holds at least the env batch (a whole-batch insert would
     # otherwise keep a rotating subset), bounded by buffer_size: at 4096
     # envs on 3x3, 4096 episodes of 121 obs, 160-230 MB
-    n_slots = max(cfg.batch_size, min(cfg.buffer_size, max(512, B)))
+    n_slots = max(cfg.batch_size, min(cfg.buffer_size,
+                                      max(512, benv.n_global)))
     ts = QRnnTS(
         main=main, target=copy.deepcopy(main),
         opt=torch.optim.Adam(main.parameters(), lr=cfg.learning_rate,

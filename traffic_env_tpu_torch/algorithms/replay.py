@@ -7,6 +7,12 @@ insert counters ``filled`` and ``cursor`` are host integers: they
 advance by one row per agent step, or by the episodes of one insert,
 whatever the data, so the learner's "replay is full" gate is a Python
 ``if`` that never waits on the device.
+
+On a sharded run (``parallel/dist.py``) a ``FrameReplay`` holds the
+rank's envs, and a sample is drawn over the global env axis alike on
+every rank: each rank reads the transitions of its envs and one
+all-gather gives every rank the whole batch.  ``EpisodeReplay`` is kept
+whole on every rank (qrnn gathers each episode batch before it inserts).
 """
 
 from __future__ import annotations
@@ -14,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from .. import parallel
 
 
 @dataclasses.dataclass
@@ -37,11 +45,13 @@ class FrameReplay:
 
     @classmethod
     def create(cls, buffer_size: int, n_envs: int, k: int, obs_dim: int,
-               act_dim: int, reward_size: int, device="cuda"):
+               act_dim: int, reward_size: int, device="cuda",
+               n_global: int | None = None):
         """``buffer_size`` is the transition capacity; the ring depth is
-        buffer_size / n_envs rows, floored at k + 2 so that at least two
+        buffer_size / n_global rows (``n_global``, the envs of all ranks,
+        defaults to ``n_envs``), floored at k + 2 so that at least two
         distinct stacks can always be rebuilt."""
-        steps = max(buffer_size // max(n_envs, 1), k + 2)
+        steps = max(buffer_size // max(n_global or n_envs, 1), k + 2)
         z = lambda *shape, dt=torch.float32: torch.zeros(
             shape, dtype=dt, device=device)
         return cls(frames=z(steps, n_envs, obs_dim),
@@ -88,37 +98,50 @@ class FrameReplay:
 
     def sample(self, generator: torch.Generator, n: int):
         """Uniform over valid (step, env) transitions: draws the offset
-        ``u`` from the newest row and the env ``e``, then
-        :meth:`sample_at`."""
+        ``u`` from the newest row and the env ``e`` of all ranks' envs,
+        then :meth:`sample_at`."""
         dev = self.frames.device
         m = max(self.filled - self.k, 1)        # valid step count
         u = torch.randint(0, m, (n,), generator=generator, device=dev)
-        e = torch.randint(0, self.frames.shape[1], (n,), generator=generator,
-                          device=dev)
+        e = torch.randint(0, self.frames.shape[1] * parallel.dp_size(),
+                          (n,), generator=generator, device=dev)
         return self.sample_at(u, e)
 
     def sample_at(self, u: torch.Tensor, e: torch.Tensor):
-        """Transitions at offsets ``u`` from the newest row and envs
-        ``e``.  Transition j consumes frames j-k..j: s = stack(j-k..j-1)
-        (the obs the actor saw when choosing a(j)), s1 = stack(j-k+1..j).
-        Returns (s, a, r, nd, s1) with nd of shape (n, 1)."""
+        """Transitions at offsets ``u`` from the newest row and global
+        envs ``e``.  Transition j consumes frames j-k..j: s =
+        stack(j-k..j-1) (the obs the actor saw when choosing a(j)), s1 =
+        stack(j-k+1..j).  Returns (s, a, r, nd, s1) with nd of shape
+        (n, 1).  On a sharded run every rank reads its envs' transitions
+        and takes the others' from the dp group's all-gather."""
         N = self.size
         u, e = u.long(), e.long()
+        sharded = parallel.dp_size() > 1
+        if sharded:
+            n_loc = self.frames.shape[1]
+            owner, e = e // n_loc, e % n_loc
         j = (self.cursor - 1 - u) % N                    # row of frame(j)
         offs = torch.arange(self.k, device=u.device)
         idx_s = (j[:, None] - self.k + offs[None, :]) % N   # (n, k)
         s = self.frames[idx_s, e[:, None]]               # (n, k, obs)
         s1 = self.frames[(idx_s + 1) % N, e[:, None]]
-        return s, self.a[j, e], self.r[j, e], self.nd[j, e][:, None], s1
+        out = (s, self.a[j, e], self.r[j, e], self.nd[j, e][:, None], s1)
+        if not sharded:
+            return out
+        rows = torch.arange(len(e), device=e.device)
+        return tuple(parallel.all_gather(x[None], 0)[owner, rows]
+                     for x in out)
 
     def state_dict(self) -> dict:
-        return {"frames": self.frames, "a": self.a, "r": self.r,
-                "nd": self.nd, "filled": self.filled, "cursor": self.cursor,
-                "k": self.k}
+        """The global ring: the envs of every rank (axis 1)."""
+        g = lambda t: parallel.all_gather(t, 1)
+        return {"frames": g(self.frames), "a": g(self.a), "r": g(self.r),
+                "nd": g(self.nd), "filled": self.filled,
+                "cursor": self.cursor, "k": self.k}
 
     def load_state_dict(self, sd: dict) -> None:
         for name in ("frames", "a", "r", "nd"):
-            getattr(self, name).copy_(sd[name])
+            getattr(self, name).copy_(parallel.shard(sd[name], 1))
         self.filled, self.cursor = int(sd["filled"]), int(sd["cursor"])
         self.k = int(sd["k"])
 

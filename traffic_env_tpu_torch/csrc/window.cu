@@ -159,6 +159,7 @@ struct WindowArgs {
   int autoreset, spawn_mode, learn_switch, yellow, emit_trips, nb;
   int decel, k_arch, reg_tpc, reg_batch;
   int G;  // envs per block
+  int env_base;  // global index of env 0: the second word of every key
   float length, rate, lam, detect_x, thresh, eps, penalty;
   float c_a, c_t, c_s0, c_l, c_v0, spawn_v, spawn_x, den0;
   Layout L;  // the block's shared memory
@@ -360,7 +361,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
     if (rst)
       ph = a.spawn_mode != SPAWN_SCHEDULE
                ? (int)(philox_w0((uint32_t)gt, (uint32_t)(a.slot_phase + i),
-                                 (uint32_t)a.seed[b], (uint32_t)b) & 1u)
+                                 (uint32_t)a.seed[b],
+                                 (uint32_t)(a.env_base + b)) & 1u)
                : hash_phase(gt, i);
     const int el = rst ? 0 : a.elapsed[i * B + b];
     ACT[it] = ac;
@@ -407,7 +409,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
       const int g = it % G, q = it / G, b = b0 + g;
       if (b >= B) continue;
       BITS[it] = philox_w0((uint32_t)GTICK[g], (uint32_t)draw_slot(a, q),
-                           (uint32_t)SEED[g], (uint32_t)b);
+                           (uint32_t)SEED[g], (uint32_t)(a.env_base + b));
     }
     ITEMS(E) {
       const int g = it % G, e = it / G;

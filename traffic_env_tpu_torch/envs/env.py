@@ -112,9 +112,14 @@ class EnvFns(NamedTuple):
 def make_env(topo: GridRoad, cfg: Config, n_envs: int,
              on_device_spawns: bool = True,
              max_spawns_per_tick: int | None = None, core: str = "window",
-             device="cuda", archetypes=None) -> EnvFns:
+             device="cuda", archetypes=None, env_base: int = 0,
+             n_global: int | None = None) -> EnvFns:
     """The env of ``n_envs`` lockstep lanes on ``core`` ("window" or
-    "fast") and ``device``.  ``max_spawns_per_tick`` defaults to 4 with
+    "fast") and ``device``: envs ``env_base .. env_base + n_envs - 1`` of
+    a batch of ``n_global`` (``n_envs`` by default), the shard of one
+    rank of a sharded run, which draws what those envs draw in the whole
+    batch (every Philox key and the init's seeds take the global env
+    index).  ``max_spawns_per_tick`` defaults to 4 with
     device spawns (arrivals past the cap are deferred by the backlog,
     never dropped) and 8 with schedule rows.  ``archetypes`` is a float32 (k, NPARAMS)
     car table (k > 1 adds each car's archetype index as a fourth car
@@ -133,7 +138,8 @@ def make_env(topo: GridRoad, cfg: Config, n_envs: int,
     obs_dim = 2 * Rt + I + (Rt if cfg.occupancy_obs else 0)
     rows = fast_core.n_car_rows(archetypes)
     sim_fns = fast_core.make_sim_fast(topo, cfg, on_device_spawns,
-                                      max_spawns_per_tick, archetypes)
+                                      max_spawns_per_tick, archetypes,
+                                      env_base)
     spec = sim_fns.spec
     remi_tables = fast_core.remi_tables(topo, dev)
     action_space = GSpace([I], 2)
@@ -173,7 +179,7 @@ def make_env(topo: GridRoad, cfg: Config, n_envs: int,
     if core == "window":
         kw = dict(on_device_spawns=on_device_spawns,
                   max_spawns_per_tick=max_spawns_per_tick,
-                  archetypes=archetypes)
+                  archetypes=archetypes, env_base=env_base)
         windows = (make_repeater_window(topo, cfg, autoreset=False, **kw),
                    make_repeater_window(topo, cfg, autoreset=True, **kw))
 
@@ -221,7 +227,8 @@ def make_env(topo: GridRoad, cfg: Config, n_envs: int,
     def init(generator: torch.Generator | None = None) -> EnvState:
         sim = fast_core.init_state_compact(
             topo, n_envs, generator, dev,
-            n_trip_bins=cfg.episode_ticks + 2 if validate else 0, rows=rows)
+            n_trip_bins=cfg.episode_ticks + 2 if validate else 0, rows=rows,
+            env_base=env_base, n_global=n_global)
         hist = torch.zeros((k_hist, obs_dim, n_envs), dtype=torch.float32,
                            device=dev)
         return EnvState(sim=sim, history=hist)
@@ -238,12 +245,13 @@ def make_env(topo: GridRoad, cfg: Config, n_envs: int,
         sched = state.sched if sched is None else sched
         sim = state.sim
         if actions is None:
-            draws = reset_bits(sim.seed, sim.resets, 1 + n_actions, I)
+            draws = reset_bits(sim.seed, sim.resets, 1 + n_actions, I,
+                               env_base)
             phase = draws[0] if phase is None else phase
             actions = draws[1:]
             sim = sim.replace(resets=sim.resets + 1)
         actions = torch.as_tensor(actions, device=dev).to(torch.int32)
-        sim = fast_core.reset(sim, phase)
+        sim = fast_core.reset(sim, phase, env_base)
         sim, obs, _, _, _, _ = rep(sim, actions[0], sched, False)
         for a in actions[1:1 + cfg.warmup_lights]:
             sim, obs, _, _, _, _ = rep(sim, a, sched, False)

@@ -50,10 +50,14 @@ def n_car_rows(archetypes=None) -> int:
 def init_state_compact(topo: GridRoad, n_envs: int,
                        generator: torch.Generator | None = None,
                        device="cuda", n_trip_bins: int = 0,
-                       rows: int = 3) -> SimState:
+                       rows: int = 3, env_base: int = 0,
+                       n_global: int | None = None) -> SimState:
     """A fresh, empty batched state (pre-reset).  Each env's Philox
-    ``seed`` is drawn from ``generator`` (on the generator's device); its
-    reset counter starts at 0.
+    ``seed`` is drawn from ``generator`` (on the generator's device):
+    the seeds of all ``n_global`` envs (``n_envs`` by default), of which
+    the batch keeps ``env_base .. env_base + n_envs - 1``, so a rank of a
+    sharded run holds the seeds its envs hold in one batch.  The reset
+    counter starts at 0.
     ``n_trip_bins > 0`` attaches the validate-mode trip-time histogram,
     i32 (n_trip_bins, n_envs).  ``rows`` is ``n_car_rows(archetypes)``:
     4 adds the archetype-index row."""
@@ -61,8 +65,10 @@ def init_state_compact(topo: GridRoad, n_envs: int,
     R, Rt, I = topo.roads, topo.train_roads, topo.intersections
     B = int(n_envs)
     gen_dev = generator.device if generator is not None else "cpu"
-    seed = torch.randint(-2 ** 31, 2 ** 31, (B,), dtype=torch.int32,
-                         generator=generator, device=gen_dev).to(dev)
+    seed = torch.randint(-2 ** 31, 2 ** 31, (n_global or B,),
+                         dtype=torch.int32, generator=generator,
+                         device=gen_dev)[env_base:env_base + B]
+    seed = seed.to(dev).clone()
     cars = torch.zeros((R, rows, RING, B), dtype=torch.float32, device=dev)
     cars[:, CX, 0] = float("inf")
     zi = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
@@ -79,15 +85,16 @@ def init_state_compact(topo: GridRoad, n_envs: int,
         trip_hist=zi(n_trip_bins, B) if n_trip_bins else None)
 
 
-def reset(sim: SimState, phase=None) -> SimState:
+def reset(sim: SimState, phase=None, env_base: int = 0) -> SimState:
     """Empty every ring (slot 0 becomes the +inf fake leader), zero the
     episode counters and set the light phase: ``phase`` (I, B), or drawn
-    from the env's reset stream (row 0 of ``reset_bits``), which then
-    advances.  The arrival stream (gap, backlog, global tick), the seed,
-    ``detected`` and ``trip_hist`` persist (as the same tensors).
-    Returns a new state."""
+    from the env's reset stream (row 0 of ``reset_bits``, env ``b`` the
+    global env ``env_base + b``), which then advances.  The arrival
+    stream (gap, backlog, global tick), the seed, ``detected`` and
+    ``trip_hist`` persist (as the same tensors).  Returns a new state."""
     if phase is None:
-        phase = reset_bits(sim.seed, sim.resets, 1, sim.phase.shape[0])[0]
+        phase = reset_bits(sim.seed, sim.resets, 1, sim.phase.shape[0],
+                           env_base)[0]
         sim = sim.replace(resets=sim.resets + 1)
     return _emptied(sim, phase)
 
@@ -235,9 +242,9 @@ def _seg(spec, t, per_road_t):
         0, t["dest_t"], per_road_t)
 
 
-def _draws(sim, first_slot, n):
+def _draws(spec, sim, first_slot, n):
     return uniform24(draw_bits(sim.seed, sim.global_tick, torch.arange(
-        first_slot, first_slot + n, device=sim.seed.device)))
+        first_slot, first_slot + n, device=sim.seed.device), spec.env_base))
 
 
 def spawn_device(spec, t, sim: SimState):
@@ -251,7 +258,7 @@ def spawn_device(spec, t, sim: SimState):
     sl, Ks, E = spec.slots, spec.Ks, int(t["entry"].numel())
     multi, regular = spec.k > 1, not spec.poisson
     gap, backlog = sim.spawn_gap, sim.spawn_backlog
-    u = _draws(sim, 0, sl.phase)
+    u = _draws(spec, sim, 0, sl.phase)
     if regular:
         # gap and backlog stay untouched
         due = (sim.global_tick % spec.reg_tpc == 0) if spec.reg_tpc \
@@ -270,7 +277,7 @@ def spawn_device(spec, t, sim: SimState):
         nplace = torch.clamp(backlog, max=Ks)
         backlog = backlog - nplace
     if multi and not regular:
-        ua = _draws(sim, sl.arch, Ks)
+        ua = _draws(spec, sim, sl.arch, Ks)
     roads, ens, ajs = [], [], []
     for j in range(Ks):
         ridx = torch.clamp((u[sl.entry + j] * E).to(torch.int64), max=E - 1)
@@ -637,7 +644,8 @@ def lazy_reset(spec, sim: SimState) -> SimState:
     if spec.on_device_spawns:
         sl = spec.slots
         ph = (draw_bits(sim.seed, sim.global_tick, torch.arange(
-            sl.phase, sl.phase + I, device=sim.seed.device)) & 1).to(I32)
+            sl.phase, sl.phase + I, device=sim.seed.device),
+            spec.env_base) & 1).to(I32)
     else:
         ph = lazy_reset_phase(sim.global_tick, I)
     return select(sim.done, _emptied(sim, ph), sim)
@@ -679,12 +687,15 @@ class SimFns(NamedTuple):
 
 
 def make_sim_fast(topo: GridRoad, cfg: Config, on_device_spawns=True,
-                  max_spawns_per_tick: int = 8, archetypes=None) -> SimFns:
+                  max_spawns_per_tick: int = 8, archetypes=None,
+                  env_base: int = 0) -> SimFns:
     """The per-tick core for ``cfg`` (counterpart of the JAX package's
     ``make_sim_fast``): in schedule mode ``tick`` reads the row of the
-    state's global tick from ``sched``."""
+    state's global tick from ``sched``; env ``b`` is the global env
+    ``env_base + b``."""
     spec = make_window_spec(topo, cfg, on_device_spawns,
-                            max_spawns_per_tick, archetypes=archetypes)
+                            max_spawns_per_tick, archetypes=archetypes,
+                            env_base=env_base)
 
     def tick_fn(sim, action, sched=None):
         row = ai = None

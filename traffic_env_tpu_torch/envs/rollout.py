@@ -49,6 +49,10 @@ class BatchedEnv(NamedTuple):
     # the per-tick core's lazy step with its tick stack; None on the
     # window core
     step_autoreset_lazy_ticks: Callable | None = None
+    # the shard of a sharded run: envs env_base .. env_base + n_envs - 1
+    # of a batch of n_global (parallel/dist.py:env_slice)
+    env_base: int = 0
+    n_global: int = 0
 
 
 def _device(device, core: str) -> torch.device:
@@ -70,8 +74,11 @@ def make_batched_env(topo: GridRoad, cfg: Config, n_envs: int,
                      on_device_spawns: bool = True,
                      max_spawns_per_tick: int | None = None,
                      device="cuda", archetypes=None,
-                     core: str = "window") -> BatchedEnv:
-    """The batched env of ``envs/env.py:make_env`` on ``core``.
+                     core: str = "window", env_base: int = 0,
+                     n_global: int | None = None) -> BatchedEnv:
+    """The batched env of ``envs/env.py:make_env`` on ``core``: envs
+    ``env_base .. env_base + n_envs - 1`` of ``n_global`` (``n_envs`` by
+    default).
     ``max_spawns_per_tick`` defaults to 4 with device spawns and 8 with
     schedule rows; ``archetypes`` is a float32 (k, NPARAMS) car table.
 
@@ -87,14 +94,15 @@ def make_batched_env(topo: GridRoad, cfg: Config, n_envs: int,
     clones for itself.  The per-tick core writes nothing in place."""
     dev = _device(device, core)
     env = make_env(topo, cfg, n_envs, on_device_spawns, max_spawns_per_tick,
-                   core, dev, archetypes)
+                   core, dev, archetypes, env_base, n_global)
     return BatchedEnv(
         env=env, n_envs=n_envs, init=env.init, reset=env.reset,
         step=env.step, step_autoreset=env.step_autoreset,
         step_autoreset_lazy=env.step_autoreset_lazy,
         step_autoreset_lazy_noh=env.step_autoreset_lazy_noh,
         n_intersections=topo.intersections, obs_dim=env.obs_dim,
-        device=dev, step_autoreset_lazy_ticks=env.step_autoreset_lazy_ticks)
+        device=dev, step_autoreset_lazy_ticks=env.step_autoreset_lazy_ticks,
+        env_base=int(env_base), n_global=int(n_global or n_envs))
 
 
 def random_rollout(benv: BatchedEnv, state: EnvState,

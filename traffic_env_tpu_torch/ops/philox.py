@@ -2,8 +2,11 @@
 kernel's device arrival stream, and the env's reset stream.
 
 Every random draw of the window is one Philox block keyed by
-``(seed[b], b)`` -- the env's seed and its index in the batch -- with
-counter ``(global_tick, slot, 0, 0)``; the draw is word 0 of the block.
+``(seed[b], env_base + b)`` -- the env's seed and its global index, the
+index in the batch plus the global index ``env_base`` of the batch's
+first env (non-zero on the ranks of a sharded run, ``parallel/dist.py``)
+-- with counter ``(global_tick, slot, 0, 0)``; the draw is word 0 of the
+block.  A rank's envs so draw what the same envs draw in one batch.
 Each draw of a tick has a fixed slot (see :class:`Slots`), so a lane
 that is frozen or resurrected never repeats or shifts the stream of
 another tick, and the kernel may skip a draw it does not use.
@@ -83,13 +86,18 @@ class Slots:
         self.arch = self.phase + MAX_I
 
 
+def _env_index(seed: torch.Tensor, env_base: int) -> torch.Tensor:
+    """The key's second word: the global index of each env, int64 (B,)."""
+    return torch.arange(env_base, env_base + seed.shape[-1],
+                        device=seed.device, dtype=torch.int64) & MASK32
+
+
 def draw_bits(seed: torch.Tensor, gtick: torch.Tensor,
-              slots: torch.Tensor) -> torch.Tensor:
+              slots: torch.Tensor, env_base: int = 0) -> torch.Tensor:
     """Word 0 of the Philox block of each (slot, env): int64 (n, B) in
     [0, 2**32).  ``seed`` and ``gtick`` are int32 (B,), ``slots`` an
-    integer (n,) tensor."""
-    B = seed.shape[-1]
-    env = torch.arange(B, device=seed.device, dtype=torch.int64)
+    integer (n,) tensor; env ``b`` is the global env ``env_base + b``."""
+    env = _env_index(seed, env_base)
     k0 = seed.to(torch.int64) & MASK32
     c0 = gtick.to(torch.int64) & MASK32
     c1 = slots.to(torch.int64)[:, None]
@@ -108,15 +116,15 @@ RESET_WORD = 1
 
 
 def reset_bits(seed: torch.Tensor, resets: torch.Tensor, n_rows: int,
-               n_intersections: int) -> torch.Tensor:
+               n_intersections: int, env_base: int = 0) -> torch.Tensor:
     """The 0/1 draws of one full reset: int32 (n_rows, I, B), row 0 the
     light phase and rows 1.. the warm-up and prefill actions.  Draw
     ``row * I + i`` of env ``b`` is bit 0 of word 0 of the Philox block
     with counter ``(resets[b], row * I + i, RESET_WORD, 0)`` and key
-    ``(seed[b], b)``."""
+    ``(seed[b], env_base + b)``."""
     B = seed.shape[-1]
     dev = seed.device
-    env = torch.arange(B, device=dev, dtype=torch.int64)
+    env = _env_index(seed, env_base)
     k0 = seed.to(torch.int64) & MASK32
     c0 = resets.to(torch.int64) & MASK32
     c1 = torch.arange(n_rows * n_intersections, device=dev,

@@ -109,6 +109,9 @@ class WindowSpec:
     spawn_v: float
     spawn_x: float
     den0: float
+    # global index of the batch's first env, the Philox key's offset
+    # (ops/philox.py): non-zero on the ranks of a sharded run
+    env_base: int = 0
     # per-device tensors of the topology, made by the CUDA wrapper
     device_cache: dict = dataclasses.field(default_factory=dict,
                                            compare=False, repr=False)
@@ -137,9 +140,10 @@ def make_window_spec(topo: GridRoad, cfg: Config,
                      on_device_spawns: bool = True,
                      max_spawns_per_tick: int = 8,
                      max_crossings_per_tick: int = 4,
-                     archetypes=None) -> WindowSpec:
+                     archetypes=None, env_base: int = 0) -> WindowSpec:
     """The window's static parameters.  ``archetypes`` is a float32
-    (k, NPARAMS) car table (the shipped one-row table when None)."""
+    (k, NPARAMS) car table (the shipped one-row table when None);
+    ``env_base`` the global index of the batch's first env."""
     arch = np.array(C.ARCHETYPES if archetypes is None else archetypes,
                     dtype=np.float32)
     if not np.all(arch[:, C.DELTA] == 4.0):
@@ -173,7 +177,8 @@ def make_window_spec(topo: GridRoad, cfg: Config,
         arch=arch, c_a=f(a[C.A]), c_t=f(a[C.T]), c_s0=f(a[C.S0]),
         c_l=f(a[C.L]), c_v0=f(a[C.V0]), spawn_v=f(a[C.V]), spawn_x=f(a[C.X]),
         den0=f(np.float32(2 * np.sqrt(np.float32(a[C.A])
-                                      * np.float32(a[C.B])))))
+                                      * np.float32(a[C.B])))),
+        env_base=int(env_base))
 
 
 def window_reference(spec: WindowSpec, d: dict, action: torch.Tensor,
@@ -188,7 +193,8 @@ def window_reference(spec: WindowSpec, d: dict, action: torch.Tensor,
     ``spawn_rows`` i32 (W, Ks, B) entry indices (-1 = none) in schedule
     mode, None in device mode; ``spawn_ai`` i32 (W, Ks, B) the archetype
     of each schedule arrival (k > 1 schedule mode; zeros when None);
-    ``seed`` i32 (B,).  ``autoreset`` first empties and rephases the
+    ``seed`` i32 (B,), env ``b`` the global env ``spec.env_base + b``.
+    ``autoreset`` first empties and rephases the
     lanes that are done (``fast_core.lazy_reset``).  With
     ``spec.emit_trips``, ``light`` f32 (I, B) receives the light times
     and the durations of the cars popped off exit roads are added to
@@ -318,11 +324,12 @@ def build_spawn_rows(sched, gtick, W: int, Ks: int, topo: GridRoad):
 def make_repeater_window(topo: GridRoad, cfg: Config,
                          on_device_spawns: bool = True,
                          max_spawns_per_tick: int = 8,
-                         autoreset: bool = False, archetypes=None):
+                         autoreset: bool = False, archetypes=None,
+                         env_base: int = 0):
     """The env layer's repeater step on a batched SimState: one window
-    call per agent step.  ``autoreset=True`` folds the lazy reset of
-    finished lanes into the window; ``archetypes`` is a (k, NPARAMS)
-    car table (k > 1 needs 4-row car states and, in schedule mode, a
+    call per agent step, env ``b`` the global env ``env_base + b``.
+    ``autoreset=True`` folds the lazy reset of finished lanes into the
+    window; ``archetypes`` is a (k, NPARAMS) car table (k > 1 needs 4-row car states and, in schedule mode, a
     schedule with ``aidx``).  Returns ``repeater_step(sim, action,
     sched=None) -> (sim, obs, rew_sum, done, light_secs)``; the window
     updates ``sim``'s tensors in place.  In validate mode
@@ -330,7 +337,8 @@ def make_repeater_window(topo: GridRoad, cfg: Config,
     to ``sim.trip_hist``, which must be attached; otherwise
     ``light_secs`` is None."""
     spec = make_window_spec(topo, cfg, on_device_spawns,
-                            max_spawns_per_tick, archetypes=archetypes)
+                            max_spawns_per_tick, archetypes=archetypes,
+                            env_base=env_base)
 
     def repeater_step(sim, action, sched=None):
         rows = airows = None

@@ -83,7 +83,7 @@ class _Args(ctypes.Structure):
             "slot_first", "slot_renew", "slot_entry", "slot_phase",
             "slot_arch", "autoreset", "spawn_mode", "learn_switch",
             "yellow", "emit_trips", "nb", "decel", "k_arch", "reg_tpc",
-            "reg_batch", "G")]
+            "reg_batch", "G", "env_base")]
         + [(n, _F) for n in (
             "length", "rate", "lam", "detect_x", "thresh", "eps", "penalty",
             "c_a", "c_t", "c_s0", "c_l", "c_v0", "spawn_v", "spawn_x",
@@ -288,7 +288,8 @@ def _args(spec: WindowSpec, geom: Geometry, B: int, ptrs: dict,
         len(spec.entry), sl.n_renew, sl.first, sl.renew, sl.entry, sl.phase,
         sl.arch, int(autoreset), spawn_mode(spec), int(spec.learn_switch),
         YELLOW_TICKS, int(spec.emit_trips), nb, int(spec.decel_penalty),
-        spec.k, spec.reg_tpc, spec.reg_batch, G, spec.length, spec.rate,
+        spec.k, spec.reg_tpc, spec.reg_batch, G, spec.env_base, spec.length,
+        spec.rate,
         spec.lam, spec.length - float(DETECT_RANGE), float(THRESH),
         float(EPS), float(OVERFLOW_PENALTY), spec.c_a, spec.c_t, spec.c_s0,
         spec.c_l, spec.c_v0, spec.spawn_v, spec.spawn_x, spec.den0, L)

@@ -8,6 +8,12 @@ on validation records, each with a ``<name>.latest`` pointer.  A
 checkpoint is one ``torch.save`` file of the train state's
 ``state_dict()`` (params, optimizer, replay, env state, counters,
 generator).  The JAX package's orbax schema migration is not ported.
+
+On a sharded run (``parallel/dist.py``) every rank calls ``save`` and
+``restore``: ``state_dict()`` gathers the global state on every rank and
+rank 0 alone writes it (the JAX package's process-0-owned checkpoint);
+rank 0 reads a checkpoint and sends it to the others, each of which
+loads its shard, so a checkpoint restores under any world size.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import shutil
 
 import torch
 
+from .. import parallel
 from ..config import Config
 
 
@@ -47,10 +54,15 @@ class Checkpointer:
         sfx = f"-{int(step)}" if step is not None else ""
         return os.path.join(self.logdir, f"{name}{sfx}")
 
-    def save(self, state, name: str = "model.ckpt", step=None) -> str:
+    def save(self, state, name: str = "model.ckpt", step=None):
+        """Write ``state``'s global state dict; on a sharded run every
+        rank gathers and rank 0 writes (the others return None)."""
+        sd = state.state_dict()
+        if not parallel.is_primary():
+            return None
         path = self._path(name, step)
         tmp = path + ".tmp"
-        torch.save(state.state_dict(), tmp)
+        torch.save(sd, tmp)
         os.replace(tmp, path)
         with open(os.path.join(self.logdir, f"{name}.latest"), "w") as f:
             f.write(os.path.basename(path))
@@ -65,10 +77,14 @@ class Checkpointer:
 
     def restore(self, template, name: str = "model.ckpt"):
         """Load the latest ``name`` checkpoint into ``template`` (its
-        tensors land on the template's device) and return it."""
-        path = self.latest_path(name)
-        if path is None:
-            raise FileNotFoundError(f"no checkpoint '{name}' in {self.logdir}")
-        template.load_state_dict(torch.load(path, map_location="cpu",
-                                            weights_only=True))
+        tensors land on the template's device) and return it; on a
+        sharded run rank 0 reads it for every rank."""
+        sd = None
+        if parallel.is_primary():
+            path = self.latest_path(name)
+            if path is None:
+                raise FileNotFoundError(f"no checkpoint '{name}' in "
+                                        f"{self.logdir}")
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+        template.load_state_dict(parallel.broadcast_object(sd))
         return template

@@ -37,3 +37,17 @@ class MetricWriter:
         self._f.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullWriter:
+    """The writer of a rank other than 0 on a sharded run: rank 0 owns
+    the metrics, the others write nothing."""
+
+    def scalar(self, name: str, value, step: int):
+        pass
+
+    def histogram(self, name: str, values, step: int):
+        pass
+
+    def close(self):
+        pass

@@ -157,10 +157,11 @@ def test_two_rank_greedy_episode_is_the_unsharded_one(exact):
         assert torch.equal(ref_sim[name], got_sim[name]), name
 
 
-def test_two_rank_exact_episode_matches_the_jax_mesh():
-    """--exact from one reset (given phase and actions), the const0
-    baseline (its red roads overflow, so lanes reset lazily): the JAX
-    package with its env state under ``shard_env_state`` on its 8
+@pytest.mark.parametrize("name", ["greedy", "const0"])
+def test_two_rank_exact_episode_matches_the_jax_mesh(name):
+    """--exact from one reset (given phase and actions), greedy and the
+    const0 baseline (its red roads overflow, so lanes reset lazily): the
+    JAX package with its env state under ``shard_env_state`` on its 8
     virtual CPU devices, and the port on 2 ranks of 4 envs: each step's
     obs, reward and done and the final state (the port's seed and reset
     counter aside) are equal, across a schedule refresh."""
@@ -193,7 +194,7 @@ def test_two_rank_exact_episode_matches_the_jax_mesh():
         lambda s, c, ph, ac: jbenv.env.reset(s, c, ph, ac),
         in_axes=-1, out_axes=-1))
     js, _ = j_reset(js, js.sched, jnp.asarray(phase), jnp.asarray(actions))
-    jpol = j_make_policies(jc, jbenv, jtopo)["const0"]
+    jpol = j_make_policies(jc, jbenv, jtopo)[name]
     jstep = jax.jit(jbenv.step_autoreset_lazy)
     held = jnp.zeros((I, B), jnp.int32)
     ref = []
@@ -206,12 +207,13 @@ def test_two_rank_exact_episode_matches_the_jax_mesh():
     got, got_sim = two_ranks(greedy_episode,
                              Config(platform="cpu", **kw).derive(), steps,
                              torch.as_tensor(phase), torch.as_tensor(actions),
-                             "const0")
+                             name)
     for t, (a, b) in enumerate(zip(ref, got)):
         for name, x, y in zip(("obs", "reward", "done"), a, b):
             np.testing.assert_array_equal(x, y.numpy(),
                                           err_msg=f"{name} step {t}")
-    assert any(d.any() for _, _, d in ref)
+    if name == "const0":
+        assert any(d.any() for _, _, d in ref)
     t_arr = sim_to_arrays(SimState(**{k: got_sim.get(k) for k in
                                       (f.name for f in
                                        dataclasses.fields(SimState))}))

@@ -127,14 +127,18 @@ Phases, one JSON line each:
    flag, launches == windows (counted in the subprocess), rank 0's
    checkpoint written.  mesh: two ranks on the one card through the
    package's launcher (``parallel.launch``, gloo, both on cuda:0, 2048
-   of 4096 envs each) against the unsharded runs: the window kernel at
-   each rank's env_base against its plain version (bit-equal), a greedy
-   episode (obs, reward, done and final state bit-equal), a qlearn
-   episode at the JAX widths (parameters bit-equal, else within rtol
-   5e-3 / atol 1e-4) and an a3c window on the 3x3 distillation config
-   (statistics within rtol 1e-3 / atol 1e-5, parameters 5e-3 / 1e-4);
-   launches == windows summed over the ranks; the agent-step ms of each
-   beside the unsharded one, for information.
+   of 4096 envs each; on a machine with several cards one rank a card,
+   NCCL, plus a qlearn episode at 4096 envs a rank, timed) against the
+   unsharded runs: the window kernel at each rank's env_base against
+   its plain version (bit-equal), a greedy episode (obs, reward, done
+   and final state bit-equal), a qlearn episode at the JAX widths
+   (parameters bit-equal) and an a3c window on the 3x3 distillation
+   config (statistics within rtol 1e-3 / atol 1e-5; the all-reduced
+   gradient within 1e-5 of its largest element of the unsharded
+   gradient on the same rollout, and the step Adam's on it within 1% of
+   the learning rate); launches
+   == windows summed over the ranks; the agent-step ms of each beside
+   the unsharded one, for information.
 10. k2: ``random_rollout`` through ``make_batched_env(archetypes=TWO)``
    at 4096 envs, device spawns, 120 timed agent steps: env-steps/s, the
    truck share of the cars on the roads, launches == windows.
@@ -161,9 +165,7 @@ Phases, one JSON line each:
 
 Then the ``kernels`` line, the nvidia-smi line, and last the ``ok``
 line.  ``--tune`` adds phase 13 and ``--parent DIR`` phase 14.
-``--mesh_only`` runs the card, build and mesh phases alone;
-``--mesh_ranks=4 --mesh_backend=nccl`` runs the mesh phase on four
-cards, one a rank, with a qlearn episode at 4096 envs a rank timed.  Any
+``--mesh_only`` runs the card, build and mesh phases alone.  Any
 failure exits non-zero before the ``ok`` line; without a CUDA device the
 script exits non-zero at once.
 """
@@ -2336,7 +2338,8 @@ def render_phase(card):
 # -- mesh: the sharded path ---------------------------------------------------
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-# the mesh phase's two ranks on the one card, each with half the envs
+# the mesh phase's ranks on a machine with one card, each with half the
+# envs
 MESH_RANKS = 2
 
 
@@ -2450,22 +2453,120 @@ def qlearn_episode_params(cfg):
     return stats, params, launches, ms
 
 
+@contextlib.contextmanager
+def kept_grads():
+    """Within it, every gradient list ``a3c.all_reduce_grads`` returns
+    (after the all-reduce, before the clip and the step) is kept, by
+    parameter name, in the list it yields."""
+    reduce, seen = a3c.all_reduce_grads, []
+
+    def keep(grads):
+        out = reduce(grads)
+        seen.append([g.clone() for g in out])
+        return out
+
+    a3c.all_reduce_grads = keep
+    try:
+        yield seen
+    finally:
+        a3c.all_reduce_grads = reduce
+
+
 def a3c_window_params(cfg):
     """One a3c window (30 agent steps, BC on the teacher) from
-    make_state: (statistics reduced over the ranks, parameters,
-    launches of make_state's reset and the window), and the ms an agent
-    step of a second window, its update included."""
+    make_state, its rollout and update as ``run_window`` runs them:
+    (statistics reduced over the ranks, (parameters before and after the
+    window's Adam step, the gradient the step was taken on, the step's
+    learning rate), the rollout gathered over the ranks (its sequence,
+    the carry it started from, the obs and carry it left, bc), launches
+    of make_state's reset and the window), and the ms an agent step of a
+    second window, its update included."""
     window_cuda.launches.clear()
     ctx, ts = a3c.make_state(cfg)
-    stats = torch.stack(ctx.fns.run_window(ts))
+    names = [k for k, _ in ts.net.named_parameters()]
+    params = lambda: {k: v.detach().clone()
+                      for k, v in ts.net.named_parameters()}
+    before = params()
+    eps = anneal(cfg.start_eps, cfg.end_eps, cfg.annealing_episodes,
+                 ts.episode)
+    bc = bool(cfg.bc_episodes) and ts.episode < cfg.bc_episodes
+    carry0 = ts.gru
+    seq = ctx.fns.rollout(ts, eps, bc)
+    g = parallel.all_gather
+    data = ({k: None if v is None else g(v, 1) for k, v in seq.items()},
+            g(carry0, 0), g(ts.obs), g(ts.gru, 0), bc)
+    with kept_grads() as seen:
+        stats = torch.stack(ctx.fns.update(ts, seq, carry0, bc))
     stats = parallel.all_reduce([stats], "mean")[0].tolist()
-    params = {k: v.clone() for k, v in ts.net.state_dict().items()}
+    step = (before, params(), dict(zip(names, seen[0])),
+            ts.opt.param_groups[0]["lr"])
     launches = dict(window_cuda.launches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ctx.fns.run_window(ts)[0].item()
     ms = (time.perf_counter() - t0) / cfg.batch_size * 1e3
-    return stats, params, launches, ms
+    return stats, (step, data), launches, ms
+
+
+def a3c_grad_on(cfg, data):
+    """The unsharded gradient of make_state's net on a window's rollout
+    ``data`` (as ``a3c_window_params`` gathers it): ``update`` in this
+    process, world 1, on the same sequence, carries and bootstrap obs."""
+    seq, carry0, obs, gru, bc = data
+    ctx, ts = a3c.make_state(cfg)
+    ts.obs, ts.gru = obs, gru
+    with kept_grads() as seen:
+        ctx.fns.update(ts, seq, carry0, bc)
+    return dict(zip((k for k, _ in ts.net.named_parameters()), seen[0]))
+
+
+def adam_first_step(params, grads, lr, clip):
+    """Adam's first step from zero moments (betas 0.9/0.999, eps 1e-8)
+    on ``grads`` clipped to global norm ``clip``: p - lr g / (|g| +
+    eps), in float64."""
+    g = {k: v.double() for k, v in grads.items()}
+    norm = float(torch.sqrt(sum(torch.sum(x * x) for x in g.values())))
+    if norm >= clip:
+        g = {k: x * (clip / norm) for k, x in g.items()}
+    return {k: params[k].double() - lr * x / (torch.abs(x) + 1e-8)
+            for k, x in g.items()}
+
+
+def a3c_step_check(ref, got, same_data):
+    """The sharded a3c window against the unsharded one: the nets start
+    bit-equal; the all-reduced gradient is, within 1e-5 of its largest
+    element, the unsharded gradient on the same rollout (``same_data``,
+    from ``a3c_grad_on``); the sharded step is Adam's first step on it
+    (clipped at 40) within 1% of the learning rate.  Beside the check,
+    for information: how far the gradient is from the unsharded run's
+    own, and how many BC labels (the teacher's argmax) and envs' final
+    obs differ between the two runs (each rank's nets run at its shard's
+    batch shape, which cuBLAS may round otherwise than the whole
+    batch).  The parameters after the step are not held to each other:
+    Adam's first step moves each element by about the learning rate
+    whatever its gradient's size.  Returns (passed, row)."""
+    ((b1, _, g1, lr1), d1), ((b2, p2, g2, lr2), d2) = ref, got
+    rel = lambda a, b: max(float((a[k] - b[k]).abs().max())
+                           for k in b) / max(float(x.abs().max())
+                                             for x in b.values())
+    want = adam_first_step(b2, g2, lr2, a3c.CLIP_NORM)
+    step_err = max(float((p2[k].double() - w).abs().max())
+                   for k, w in want.items()) / lr2
+    start = all(torch.equal(b1[k], b2[k]) for k in b1)
+    grad_err = rel(g2, same_data)
+    row = {"a3c_start_bit_equal": start,
+           "a3c_grad_max_err_over_largest": grad_err,
+           "a3c_grad_vs_unsharded_run_over_largest": rel(g2, g1),
+           "a3c_step_max_err_over_lr": step_err,
+           "a3c_learning_rate": lr2,
+           "a3c_bc_labels_differing": int(
+               (d1[0]["expert"] != d2[0]["expert"]).sum()),
+           "a3c_envs_final_obs_differing": int(
+               (d1[2] != d2[2]).reshape(-1, d1[2].shape[-1]).any(0).sum()),
+           "a3c_params_after_max_abs_err": max(
+               leaf_diff(ref[0][1][k], p2[k])[1] for k in p2)}
+    return (start and lr1 == lr2 and grad_err <= 1e-5
+            and step_err <= 1e-2), row
 
 
 def mesh_kernel_case(windows=20):
@@ -2533,35 +2634,33 @@ def mesh_ranks(scaling=False):
 
 
 def params_diff(a, b):
-    """(bit-equal, largest |a - b|, within rtol 5e-3 / atol 1e-4, and
-    the elements beyond it by parameter)."""
-    equal = all(torch.equal(a[k], b[k]) for k in a)
-    err = max(leaf_diff(a[k], b[k])[1] for k in a)
-    beyond = {k: int((~torch.isclose(b[k], a[k], rtol=5e-3,
-                                     atol=1e-4)).sum()) for k in a}
-    beyond = {k: n for k, n in beyond.items() if n}
-    return equal, err, not beyond, beyond
+    """(bit-equal, largest |a - b|)."""
+    return (all(torch.equal(a[k], b[k]) for k in a),
+            max(leaf_diff(a[k], b[k])[1] for k in a))
 
 
-def mesh_phase(card, ranks=MESH_RANKS, backend="gloo"):
-    """(b) Two ranks on the one card (the package's launcher, gloo, each
-    rank on cuda:0 with 2048 of 4096 envs; or ``ranks`` ranks with
-    ``backend="nccl"``, one card a rank, and then also a qlearn episode
-    at 4096 envs a rank, timed) against the unsharded runs in this
-    process: a greedy episode (obs, reward, done and final state
-    bit-equal), a qlearn episode at the JAX widths (parameters bit-equal,
-    or within rtol 5e-3 / atol 1e-4 where an argmax on the rank's batch
-    rounds otherwise), an a3c window on the 3x3 distillation config
-    (statistics within rtol 1e-3 / atol 1e-5, parameters 5e-3 / 1e-4),
-    and the kernel at each rank's env_base against its plain version,
-    bit-equal.  The sharded and unsharded agent-step ms side by side,
-    for information: two ranks on one card give no speed-up."""
+def mesh_phase(card):
+    """(b) The sharded path against the unsharded runs in this process:
+    on one card two ranks through the package's launcher (gloo, both on
+    cuda:0, 2048 of 4096 envs each); on several cards one rank a card
+    (NCCL), and then also a qlearn episode at 4096 envs a rank, timed.
+    Held: the kernel at each rank's env_base against its plain version
+    and a greedy episode (obs, reward, done and final state), bit-equal;
+    a qlearn episode at the JAX widths (parameters bit-equal); an a3c
+    window on the 3x3 distillation config (statistics within rtol 1e-3
+    / atol 1e-5, the gradient on the same rollout and the step by
+    ``a3c_step_check``).  The
+    sharded and unsharded agent-step ms side by side, for information:
+    two ranks on one card give no speed-up."""
+    cards = torch.cuda.device_count()
+    nccl = cards > 1
+    ranks = cards if nccl else MESH_RANKS
+    backend = "nccl" if nccl else "gloo"
     greedy_rollout_gathered(greedy_config(), 120)
     ref_g = greedy_rollout_gathered(greedy_config(), 120)
     ref_q = qlearn_episode_params(qlearn_config())
     ref_a = a3c_window_params(a3c_config())
     t0 = time.perf_counter()
-    nccl = backend == "nccl"
     got = parallel.launch(
         mesh_ranks, (nccl,), world_size=ranks, backend=backend,
         device_type="cuda", share_card=not nccl, timeout_s=600)
@@ -2570,10 +2669,9 @@ def mesh_phase(card, ranks=MESH_RANKS, backend="gloo"):
                                                     got["greedy"][0])
                   for x, y in zip(a, b)) and \
         all(torch.equal(v, got["greedy"][1][k]) for k, v in ref_g[1].items())
-    q_equal, q_err, q_close, q_beyond = params_diff(ref_q[1],
-                                                    got["qlearn"][1])
-    a_equal, a_err, a_close, a_beyond = params_diff(ref_a[1],
-                                                    got["a3c"][1])
+    q_equal, q_err = params_diff(ref_q[1], got["qlearn"][1])
+    a_ok, a_row = a3c_step_check(ref_a[1], got["a3c"][1],
+                                 a3c_grad_on(a3c_config(), got["a3c"][1][1]))
     a_stats = bool(np.allclose(got["a3c"][0], ref_a[0], rtol=1e-3,
                                atol=1e-5))
     reset_w = lambda c: 1 + c.warmup_lights + c.history - 1
@@ -2592,12 +2690,8 @@ def mesh_phase(card, ranks=MESH_RANKS, backend="gloo"):
            "kernel_env_base": got["kernel"],
            "greedy_bit_equal": g_equal,
            "qlearn_params_bit_equal": q_equal, "qlearn_max_abs_err": q_err,
-           "qlearn_params_beyond_tolerance": q_beyond,
            "qlearn_stats": [ref_q[0], got["qlearn"][0]],
-           "a3c_stats_close": a_stats, "a3c_params_bit_equal": a_equal,
-           "a3c_params_max_abs_err": a_err,
-           "a3c_params_beyond_tolerance": a_beyond,
-           "a3c_learning_rate": ac.learning_rate,
+           "a3c_stats_close": a_stats, **a_row,
            "a3c_stats": [ref_a[0], got["a3c"][0]],
            "launches": {p: PATH_LAUNCHES[p] for p in want},
            "windows_run": want,
@@ -2619,7 +2713,7 @@ def mesh_phase(card, ranks=MESH_RANKS, backend="gloo"):
             raise SmokeFailure(f"{path}: launches {PATH_LAUNCHES[path]}, "
                                f"windows {w}")
     if any(k["max_abs_err"] != 0 for k in got["kernel"]) or not g_equal \
-            or not q_close or not a_close or not a_stats \
+            or not q_equal or not a_ok or not a_stats \
             or not all(math.isfinite(x) for x in got["qlearn"][0]):
         raise SmokeFailure("mesh: a sharded run differs from the unsharded "
                            "one")
@@ -2652,12 +2746,6 @@ def main():
     ap.add_argument("--mesh_only", action="store_true",
                     help="run only the mesh phases (the card and build "
                     "lines first, the ok line last)")
-    ap.add_argument("--mesh_ranks", type=int, default=MESH_RANKS,
-                    help="ranks of the mesh phase")
-    ap.add_argument("--mesh_backend", default="gloo",
-                    choices=("gloo", "nccl"),
-                    help="gloo: every rank on cuda:0; nccl: one card a "
-                    "rank, and a qlearn episode at 4096 envs a rank")
     ap.add_argument("--exact_envs", type=int, default=256,
                     help="envs of the exact_qlearn phase (the JAX "
                     "defaults' 1024 take minutes of host stream time)")
@@ -2686,7 +2774,7 @@ def main():
 
     if args.mesh_only:
         mesh_world1_phase(card)
-        mesh_phase(card, args.mesh_ranks, args.mesh_backend)
+        mesh_phase(card)
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -2707,7 +2795,7 @@ def main():
         "qlearn_validate_rewards": val_row["rewards"]})
     render_phase(card)
     mesh1_row = mesh_world1_phase(card)
-    mesh_row = mesh_phase(card, args.mesh_ranks, args.mesh_backend)
+    mesh_row = mesh_phase(card)
     exact_rows = exact_qlearn_phase(card, args.exact_envs)
     conv_rows = conv_qlearn_phase(card)
     a3c_phase(card, "a3c", {})

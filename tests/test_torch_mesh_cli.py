@@ -61,8 +61,8 @@ def test_two_process_cli_training(tmp_path):
                for ln in lines)
 
 
-def test_two_rank_checkpoint_restores_in_one_process(tmp_path):
-    """qlearn for one episode on --mesh_shape=2 (gloo), saved by rank 0,
+def checkpoint_roundtrip(tmp_path, mesh_shape):
+    """qlearn for one episode on ``mesh_shape`` (gloo), saved by rank 0,
     then --restore in one process for a second episode: the parameters,
     the replay and the env state equal those of two episodes in one
     process."""
@@ -73,7 +73,7 @@ def test_two_rank_checkpoint_restores_in_one_process(tmp_path):
     ref = run_alg(Config(total_episodes=2, logdir=str(tmp_path / "one"),
                          **kw).derive())
     logdir = str(tmp_path / "two")
-    run_alg(Config(mesh_shape="2", total_episodes=1, logdir=logdir,
+    run_alg(Config(mesh_shape=mesh_shape, total_episodes=1, logdir=logdir,
                    **kw).derive())
     sd = torch.load(os.path.join(logdir, "model.ckpt"), weights_only=True)
     assert sd["sim"]["cars"].shape[-1] == 8
@@ -90,3 +90,13 @@ def test_two_rank_checkpoint_restores_in_one_process(tmp_path):
     for k, v in a["sim"].items():
         if v is not None:
             assert torch.equal(v, b["sim"][k]), k
+
+
+def test_two_rank_checkpoint_restores_in_one_process(tmp_path):
+    checkpoint_roundtrip(tmp_path, "2")
+
+
+def test_dp_mp_checkpoint_restores_in_one_process(tmp_path):
+    """The same on a 2 x 2 mesh: 4 ranks, 2 mp replicas of each dp shard,
+    one checkpoint of the global state."""
+    checkpoint_roundtrip(tmp_path, "2,2")

@@ -19,8 +19,11 @@ _PORTED = ("qlearn", "qrnn", "a3c", "polgrad_rnn", "cem") + _BASELINES
 
 
 def run_alg(cfg: Config):
-    """Dispatch on --trainer; with --mesh_shape or --num_processes, on
-    every local rank of the run (``run_sharded``)."""
+    """Dispatch on --trainer.  With --mesh_shape or --num_processes the
+    run goes to every local rank, each with its shard of the envs, and
+    rank 0's result is returned: the world is ``--mesh_shape``'s dp x mp
+    (one rank a process when only --num_processes is given), NCCL with
+    one card a rank unless ``--platform=cpu`` (gloo)."""
     name = cfg.trainer
     if cfg.single_agent and name not in ("qlearn", "qrnn"):
         raise ValueError(
@@ -30,30 +33,17 @@ def run_alg(cfg: Config):
     if name not in _PORTED:
         raise ValueError(f"unknown trainer {name!r}; choose from "
                          f"{_PORTED}")
-    if cfg.mesh_shape or cfg.num_processes > 1:
-        return run_sharded(cfg)
-    return _run(cfg)
-
-
-def run_sharded(cfg: Config, backend: str | None = None,
-                share_card: bool = False,
-                timeout_s: float = parallel.dist.TIMEOUT_S):
-    """``cfg``'s run on every local rank, each with its shard of the
-    envs; returns rank 0's result.  The world is ``--mesh_shape``'s dp x
-    mp (one rank a process when only --num_processes is given), NCCL
-    with one card a rank unless ``--platform=cpu`` (gloo).  ``backend``
-    and ``share_card`` (every rank on cuda:0, gloo only) serve a check
-    of the sharded path on one card."""
+    if not (cfg.mesh_shape or cfg.num_processes > 1):
+        return _run(cfg)
     dp, mp = parallel.mesh_dims(cfg.mesh_shape) if cfg.mesh_shape \
         else (max(cfg.num_processes, 1), 1)
     cpu = cfg.platform == "cpu"
     return parallel.launch(
         _run, (cfg,), world_size=dp * mp, mesh_shape=f"{dp},{mp}",
-        backend=backend or ("gloo" if cpu else "nccl"),
+        backend="gloo" if cpu else "nccl",
         device_type="cpu" if cpu else "cuda",
         num_processes=max(cfg.num_processes, 1),
-        process_id=cfg.process_id, coordinator=cfg.coordinator,
-        share_card=share_card, timeout_s=timeout_s)
+        process_id=cfg.process_id, coordinator=cfg.coordinator)
 
 
 def _run(cfg: Config):
@@ -69,4 +59,4 @@ def _run(cfg: Config):
     return mod.run(cfg.derive())
 
 
-__all__ = ["run_alg", "run_sharded"]
+__all__ = ["run_alg"]

@@ -138,10 +138,10 @@ def normalize_advantages(adv: torch.Tensor, eps: float = 1e-6
     return (adv - mean) / (torch.sqrt(var) + eps)
 
 
-def all_reduce_grads(params) -> None:
-    """Replace each parameter's gradient by its mean over the ranks (a
-    no-op unsharded)."""
-    parallel.all_reduce([p.grad for p in params], "mean")
+def all_reduce_grads(grads) -> list:
+    """Each gradient replaced, in place, by its mean over the ranks (a
+    no-op unsharded); returns the list."""
+    return parallel.all_reduce(grads, "mean")
 
 
 def sigmoid_bce(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -256,8 +256,7 @@ def make_fns(cfg: Config, benv, topo) -> A3CFns:
                             seq["done"], carry0, expert_seq, anchor_w)
         ts.opt.zero_grad(set_to_none=True)
         loss.backward()
-        all_reduce_grads(ts.net.parameters())
-        grads = [p.grad for p in ts.net.parameters()]
+        grads = all_reduce_grads([p.grad for p in ts.net.parameters()])
         # optax.clip_by_global_norm: scale by max / norm when norm >= max
         gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         keep = gnorm < CLIP_NORM

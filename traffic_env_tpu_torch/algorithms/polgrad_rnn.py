@@ -44,7 +44,8 @@ from ..config import Config
 from ..envs.env import EnvState
 from ..models.nets import PolGradNet
 from ..ops.discount import discount
-from .a3c import normalize_advantages, sigmoid_bce, window_lr
+from .a3c import (all_reduce_grads, normalize_advantages, sigmoid_bce,
+                  window_lr)
 from .common import (build_env, env_shard, env_state_dict, handle_modes,
                      load_env_state, make_expert_action, refresh_schedule,
                      validate_telemetry, validation_hook)
@@ -200,8 +201,7 @@ def make_fns(cfg: Config, benv, topo) -> PGFns:
         loss = loss_fn(ts.net, seq["obs"], seq["act"], epr, expert_seq,
                        anchor_w)
         params = list(ts.net.parameters())
-        grads = parallel.all_reduce(torch.autograd.grad(loss, params),
-                                    "mean")
+        grads = all_reduce_grads(list(torch.autograd.grad(loss, params)))
         for acc, g in zip(ts.grad_acc, grads):
             acc.add_(g)
         ts.n_acc += 1

@@ -25,7 +25,7 @@ which torch would otherwise run in TF32 on the card.
 
 On a sharded run (``parallel/dist.py``) each rank acts for its envs with
 the exploration draws of the global batch, and every rank draws the
-same replay sample over the global env axis, which the all-gather of
+same replay sample over the global env axis, which the all-reduce of
 ``FrameReplay.sample_at`` makes whole on every rank: every rank then
 runs the same ``td_update`` on the same batch, and the parameters stay
 those of the unsharded run with no gradient all-reduce.  The episode

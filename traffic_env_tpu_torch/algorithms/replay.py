@@ -10,8 +10,8 @@ whatever the data, so the learner's "replay is full" gate is a Python
 
 On a sharded run (``parallel/dist.py``) a ``FrameReplay`` holds the
 rank's envs, and a sample is drawn over the global env axis alike on
-every rank: each rank reads the transitions of its envs and one
-all-gather gives every rank the whole batch.  ``EpisodeReplay`` is kept
+every rank: each rank reads the transitions of its envs and one sum
+all-reduce of the small batch gives every rank the whole of it.  ``EpisodeReplay`` is kept
 whole on every rank (qrnn gathers each episode batch before it inserts).
 """
 
@@ -113,24 +113,23 @@ class FrameReplay:
         stack(j-k..j-1) (the obs the actor saw when choosing a(j)), s1 =
         stack(j-k+1..j).  Returns (s, a, r, nd, s1) with nd of shape
         (n, 1).  On a sharded run every rank reads its envs' transitions
-        and takes the others' from the dp group's all-gather."""
-        N = self.size
+        and :func:`_from_owners` fills in the others'."""
+        N, k, n_loc = self.size, self.k, self.frames.shape[1]
         u, e = u.long(), e.long()
         sharded = parallel.dp_size() > 1
         if sharded:
-            n_loc = self.frames.shape[1]
-            owner, e = e // n_loc, e % n_loc
+            e = e - parallel.dp_rank() * n_loc
+            own = (e >= 0) & (e < n_loc)
+            e = torch.where(own, e, 0)
         j = (self.cursor - 1 - u) % N                    # row of frame(j)
-        offs = torch.arange(self.k, device=u.device)
-        idx_s = (j[:, None] - self.k + offs[None, :]) % N   # (n, k)
-        s = self.frames[idx_s, e[:, None]]               # (n, k, obs)
-        s1 = self.frames[(idx_s + 1) % N, e[:, None]]
-        out = (s, self.a[j, e], self.r[j, e], self.nd[j, e][:, None], s1)
-        if not sharded:
-            return out
-        rows = torch.arange(len(e), device=e.device)
-        return tuple(parallel.all_gather(x[None], 0)[owner, rows]
-                     for x in out)
+        offs = torch.arange(k + 1, device=u.device)
+        rows = (j[:, None] - k + offs[None, :]) % N      # frames j-k..j
+        frames = self.frames[rows, e[:, None]]           # (n, k + 1, obs)
+        batch = (frames, self.a[j, e], self.r[j, e], self.nd[j, e][:, None])
+        if sharded:
+            batch = _from_owners(own, batch)
+        frames, a, r, nd = batch
+        return frames[:, :k], a, r, nd, frames[:, 1:]
 
     def state_dict(self) -> dict:
         """The global ring: the envs of every rank (axis 1)."""
@@ -144,6 +143,21 @@ class FrameReplay:
             getattr(self, name).copy_(parallel.shard(sd[name], 1))
         self.filled, self.cursor = int(sd["filled"]), int(sd["cursor"])
         self.k = int(sd["k"])
+
+
+def _from_owners(own: torch.Tensor, tensors):
+    """The batch's rows as the ranks that own them read them: every rank
+    zeroes the rows it does not own (``own`` False), and one sum
+    all-reduce over the dp group, of all the tensors' 32-bit words as
+    int32, fills them in.  Only the owner adds a non-zero word, so every
+    row keeps its owner's bits (-0.0 included)."""
+    words = [torch.where(own.view(-1, *[1] * (t.dim() - 1)),
+                         t.view(torch.int32), 0).reshape(-1)
+             for t in tensors]
+    buf = parallel.all_reduce([torch.cat(words)])[0]
+    parts = torch.split(buf, [w.numel() for w in words])
+    return tuple(p.view(t.shape).view(t.dtype)
+                 for p, t in zip(parts, tensors))
 
 
 @dataclasses.dataclass

@@ -49,8 +49,9 @@ Phases, one JSON line each:
    episodes with a validation at episode 2, then a ``mode="validate",
    restore=True`` episode from the checkpoint.  Each run's kernel
    launches must equal the windows it ran, by variant; the loss must
-   be finite and the validation must return trip and light times.  Then
-   a timed training episode: agent-step ms and env-steps/s.
+   be finite and the validation must return trip and light times (and
+   leave hist.png in the logdir where matplotlib imports).  Then a
+   timed training episode: agent-step ms and env-steps/s.
    exact_qlearn: the same trainer under --exact (host MT19937 streams,
    ``--exact_envs`` envs, 256 by default, cut from the JAX defaults'
    1024 for the host stream's time): 2 training episodes with a
@@ -95,6 +96,15 @@ Phases, one JSON line each:
    |output|).  cem: ``run`` through ``run_alg`` at its 60 envs for 3
    iterations (launches == windows, weights.json written), then a
    generation at --num_tries=64 (3,840 envs) timed, with its launches.
+   cartpole: the CartPole fixture (``envs/cartpole.py``) at 4096 envs,
+   its physics, step, autoreset, lazy reset and reset draws on the card
+   against the CPU on the same states (within 1e-6; t, done and the
+   reset counters equal); one training episode with a validation of
+   qlearn, qrnn, a3c and polgrad_rnn through ``run_alg`` (no window
+   launches); and the JAX package's slow learning test
+   (``tests/test_algorithms.py:71-96``: qlearn, 32 envs, 40 episodes of
+   200 steps), its best of four greedy validations held to the bar
+   ``best > max(2 * first, first + 20)``.
 8. variant_parity: the decel_penalty, regular-spawn and k > 1
    (two-archetype) variants against their plain version on the card,
    3x3 grid, 4096 envs, 50 windows, autoreset on: decel with schedule
@@ -120,6 +130,17 @@ Phases, one JSON line each:
    (12 frames; launches == windows) and with --render_ticks on the
    rebuilt per-tick core (120 frames); PNG frames where matplotlib
    imports, else terminal frames into a buffer.
+   profiler: ``traffic_env_tpu_torch/profiler.py`` at 4096 envs: the
+   sweep on the window core (50 episodes, with ``--trace``) and on the
+   per-tick core (1 episode), and ``--trainer=qlearn`` (5 episodes, with
+   ``--trace``); launches == windows (none on the per-tick core), the
+   window kernel among each trace's device kernels, and from each trace
+   the per-op breakdown of the bench and qlearn steps: top-level host
+   ops and kernel launches a step, the top host ops by self CPU time and
+   the top device kernels by device time (each list on its own line),
+   and the window's share and the device's idle share of the traced
+   step (device times over the trace's own span), beside the step's ms
+   unprofiled.
    mesh_world1: the sharded CLI at world 1, ``python -m
    traffic_env_tpu_torch --trainer=qlearn --mesh_shape=1`` in a
    subprocess (NCCL, one rank), 2 training episodes with a validation
@@ -299,8 +320,20 @@ def check_launches(path, expected):
     return got
 
 
+# the script's start, for each phase line's elapsed seconds
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
+
+
+def platform():
+    """--platform of the configs the phases build: the card, or the CPU
+    in a rehearsal with ``DEVICE = "cpu"``."""
+    return "cpu" if DEVICE == "cpu" else ""
 
 
 def nvidia_smi() -> str:
@@ -764,8 +797,7 @@ def qlearn_config(**kw):
     """The flagship trainer at the JAX package's default widths on
     4096 envs (unless ``num_envs`` is given)."""
     return Config(**{"trainer": "qlearn", "num_envs": N_ENVS,
-                     "platform": "cpu" if DEVICE == "cpu" else "",
-                     **kw}).derive()
+                     "platform": platform(), **kw}).derive()
 
 
 def read_metrics(logdir):
@@ -827,6 +859,7 @@ def qlearn_phase(card):
             "mean_trip_s": float(np.mean(trips)) if trips else None,
             "mean_light_s": float(np.mean(lights)) if lights else None,
             "unfinished_cars_per_env": unfinished,
+            "hist_png": os.path.exists(os.path.join(logdir, "hist.png")),
             "launches": dict(window_cuda.launches),
             "windows_run": val_windows}
         emit(val_row)
@@ -835,6 +868,10 @@ def qlearn_phase(card):
                 or not math.isfinite(reward[0]):
             raise SmokeFailure("qlearn validate returned no telemetry or "
                                "no finite reward")
+        if importlib.util.find_spec("matplotlib") is not None \
+                and not val_row["hist_png"]:
+            raise SmokeFailure("qlearn validate drew no hist.png, though "
+                               "matplotlib imports")
     finally:
         shutil.rmtree(logdir, ignore_errors=True)
 
@@ -2335,6 +2372,309 @@ def render_phase(card):
     return rows
 
 
+# -- the profiler and the CartPole fixture ----------------------------------
+
+# the profiler phase: timed episodes of the window sweep and of qlearn,
+# and of the per-tick sweep (its episode takes ~13 s at 4096 envs)
+PROF_EPISODES = 50
+PROF_FAST_EPISODES = 1
+PROF_QLEARN_EPISODES = 5
+# Config fields over the profiler's configs (none on the card; a
+# rehearsal on the CPU shortens the episodes)
+PROF_OVERRIDES: dict = {}
+TOP_OPS = 12
+
+
+def op_breakdown(prof, steps):
+    """The per-op breakdown of a torch.profiler run over ``steps``
+    agent steps: the top-level host ops and CUDA runtime calls a step,
+    the top host ops by self CPU time, the top device kernels by device
+    time, the window kernel's device time, and the device's busy time."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    top = [e for e in events if e.cpu_parent is None]
+    aten = [e for e in top if e.name.startswith("aten::")]
+    runtime = [e for e in events if e.name.startswith(("cuda", "cu"))
+               and not e.name.startswith("cudnn")]
+    launches = [e for e in runtime if "LaunchKernel" in e.name]
+    avg = prof.key_averages()
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)
+    host = sorted((e for e in avg if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    # device kernels and copies, not the device spans of annotations
+    # such as Optimizer.step
+    kern = sorted((e for e in avg if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kern) / 1e3
+    window_ms = sum(dev_us(e) for e in kern
+                    if "window_kernel" in e.key) / 1e3
+    return {
+        "agent_steps": steps,
+        "host_ops_per_step": len(aten) / steps,
+        "host_events_per_step": len(top) / steps,
+        "runtime_calls_per_step": len(runtime) / steps,
+        "kernel_launches_per_step": len(launches) / steps,
+        "host_self_ms_per_step": sum(e.self_cpu_time_total
+                                     for e in host) / 1e3 / steps,
+        "device_ms_per_step": busy_ms / steps,
+        "window_kernel_ms_per_step": window_ms / steps,
+        "top_host_ops": [
+            {"op": e.key[:60], "calls_per_step": e.count / steps,
+             "self_cpu_us_per_step": e.self_cpu_time_total / steps}
+            for e in host[:TOP_OPS]],
+        "top_device_kernels": [
+            {"kernel": e.key[:80], "calls_per_step": e.count / steps,
+             "device_us_per_step": dev_us(e) / steps}
+            for e in kern[:TOP_OPS]]}
+
+
+def read_trace(trace_dir):
+    """The names of the device kernels in ``trace_dir/trace.json`` and
+    the trace's own span in ms: from the first event's start to the
+    last one's end, the profiled run's wall time."""
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "ts" in e]
+    span_us = (max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+               - min(float(e["ts"]) for e in events))
+    return {e["name"] for e in events if e.get("cat") == "kernel"}, \
+        span_us / 1e3
+
+
+def profiler_trace_row(card, path, row, prof, trace_dir, steps, timed_ms):
+    """Emit the trace's per-op breakdown of ``path``; fail unless the
+    trace holds the window kernel among its device kernels.  The
+    window's share and the device's idle share divide the trace's
+    device times by the trace's own span; ``timed_ms`` is the profiler's
+    unprofiled step, reported beside the traced one."""
+    kernels, span_ms = read_trace(trace_dir)
+    br = op_breakdown(prof, steps)
+    traced_ms = span_ms / steps
+    out = {"phase": "profiler_trace", "path": path, "card": card,
+           "envs": N_ENVS, **br,
+           "trace_bytes": os.path.getsize(os.path.join(trace_dir,
+                                                       "trace.json")),
+           "trace_kernels": len(kernels),
+           "window_kernel_in_trace": any("window_kernel" in k
+                                         for k in kernels),
+           "step_ms_traced": traced_ms,
+           "step_ms_unprofiled": timed_ms,
+           "window_share_of_traced_step":
+               br["window_kernel_ms_per_step"] / traced_ms,
+           "device_idle_share_traced":
+               1 - br["device_ms_per_step"] / traced_ms}
+    emit({k: v for k, v in out.items()
+          if k not in ("top_host_ops", "top_device_kernels")})
+    # the per-op top lists, each on its own line
+    emit({"phase": "profiler_top_host_ops", "path": path,
+          "ops": br["top_host_ops"]})
+    emit({"phase": "profiler_top_device_kernels", "path": path,
+          "kernels": br["top_device_kernels"]})
+    if not span_ms > 0:
+        raise SmokeFailure(f"profiler {path}: the trace spans no time")
+    # (a rehearsal on the CPU has no device kernels)
+    if DEVICE == "cuda" and not out["window_kernel_in_trace"]:
+        raise SmokeFailure(f"profiler {path}: no window kernel among the "
+                           f"trace's {len(kernels)} device kernels")
+    return out
+
+
+def profiler_phase(card):
+    """``traffic_env_tpu_torch/profiler.py`` on the card at 4096 envs: the
+    sweep on the window core with ``--trace`` and on the per-tick core,
+    and ``--trainer=qlearn`` with ``--trace``, each with the launch
+    counts set to 0 before it (launches == windows; none on the per-tick
+    core).  The traces' per-op breakdown of the bench and qlearn steps."""
+    from traffic_env_tpu_torch import profiler
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profiler_")
+    rows = {}
+    try:
+        bcfg = Config(history=1, trainer="random", num_envs=N_ENVS,
+                      **PROF_OVERRIDES).derive()
+        T = bcfg.episode_len
+        for core, episodes in (("window", PROF_EPISODES),
+                               ("fast", PROF_FAST_EPISODES)):
+            argv = [f"--num_envs={N_ENVS}", f"--episodes={episodes}",
+                    f"--core={core}", f"--platform={platform()}"]
+            tdir = os.path.join(tmp, core)
+            if core == "window":
+                argv.append(f"--trace={tdir}")
+            window_cuda.launches.clear()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                row, prof = profiler.sweep(profiler.parse_args(argv),
+                                           **PROF_OVERRIDES)
+            seconds = time.perf_counter() - t0
+            traced = 2 if core == "window" else 0
+            windows = 1 + bcfg.warmup_lights + T * (1 + traced + episodes)
+            printed = [json.loads(l) for l in out.getvalue().splitlines()
+                       if l.startswith("{")]
+            rows[core] = {"phase": "profiler", "path": f"sweep_{core}",
+                          "card": card, **row,
+                          "seconds_with_setup": seconds,
+                          "launches": dict(window_cuda.launches),
+                          "windows_run": windows if core == "window" else 0}
+            emit(rows[core])
+            check_launches(f"profiler_{core}",
+                           {"window": windows} if core == "window" else {})
+            if printed != [row] or not row["env_steps_per_sec"] > 0:
+                raise SmokeFailure(f"profiler sweep {core}: printed "
+                                   f"{printed}")
+            if core == "window":
+                rows["bench_trace"] = profiler_trace_row(
+                    card, "bench", row, prof, tdir, 2 * T,
+                    row["wall_s"] / (episodes * T) * 1e3)
+
+        qcfg = qlearn_config(**PROF_OVERRIDES)
+        reset_w = 1 + qcfg.warmup_lights + qcfg.history - 1
+        tdir = os.path.join(tmp, "qlearn")
+        argv = [f"--num_envs={N_ENVS}", f"--episodes={PROF_QLEARN_EPISODES}",
+                "--trainer=qlearn", f"--trace={tdir}",
+                f"--platform={platform()}"]
+        window_cuda.launches.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            row, prof = profiler.profile_training(
+                profiler.parse_args(argv), **PROF_OVERRIDES)
+        seconds = time.perf_counter() - t0
+        windows = reset_w + qcfg.episode_len * (2 + PROF_QLEARN_EPISODES)
+        rows["qlearn"] = {"phase": "profiler", "path": "trainer_qlearn",
+                          "card": card, **row, "seconds_with_setup": seconds,
+                          "launches": dict(window_cuda.launches),
+                          "windows_run": windows}
+        emit(rows["qlearn"])
+        check_launches("profiler_qlearn", {"window": windows})
+        rows["qlearn_trace"] = profiler_trace_row(
+            card, "qlearn", row, prof, tdir, qcfg.episode_len,
+            row["wall_s"] / (PROF_QLEARN_EPISODES * qcfg.episode_len) * 1e3)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
+
+
+# the JAX package's slow CartPole test (tests/test_algorithms.py:71-96)
+CARTPOLE_LEARN_KW = dict(num_envs=32, buffer_size=2048, batch_size=64,
+                         learning_rate=1e-3, gamma=0.99, start_eps=1.0,
+                         end_eps=0.05, annealing_episodes=30,
+                         target_update_rate=50, print_discounted=False,
+                         seed=3)
+CARTPOLE_LEARN_EPISODES = 40
+
+
+def cartpole_phase(card):
+    """The CartPole fixture on the card: the step (physics, autoreset and
+    the reset draws) against the CPU's on the same states, within 1e-6;
+    one training episode with a validation of each learner through
+    ``run_alg`` at 4096 envs; and the JAX package's qlearn learning
+    fixture (32 envs, 40 episodes of 200 steps, the best of four greedy
+    validations against the first), held to its bar."""
+    from traffic_env_tpu_torch.envs import cartpole
+    rng = np.random.RandomState(0)
+    lim = np.array([cartpole.X_LIMIT, 3.0, cartpole.THETA_LIMIT, 3.0],
+                   np.float32)
+    s = (rng.uniform(-1, 1, (4, N_ENVS)) * lim[:, None]).astype(np.float32)
+    t = rng.randint(cartpole.MAX_STEPS - 3, cartpole.MAX_STEPS,
+                    N_ENVS).astype(np.int32)
+    a = rng.randint(0, 2, (1, N_ENVS)).astype(np.int32)
+    done = rng.rand(N_ENVS) < 0.3
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        benv = cartpole.make_cartpole_benv(N_ENVS, dev)
+        st = cartpole.CartPoleState(
+            s=torch.tensor(s, device=dev), t=torch.tensor(t, device=dev),
+            done=torch.tensor(done, device=dev),
+            seed=torch.arange(N_ENVS, dtype=torch.int32, device=dev),
+            resets=torch.zeros(N_ENVS, dtype=torch.int32, device=dev))
+        act = torch.tensor(a, device=dev)
+        phys = cartpole._physics(st.s, act[0])
+        stepped = benv.step(st, act)[0]
+        auto = benv.step_autoreset(st, act)[0]
+        lazy = benv.step_autoreset_lazy(st, act)[0]
+        outs[dev] = [x.cpu() for x in (phys, stepped.s, auto.s, lazy.s,
+                                       stepped.t, stepped.done, auto.resets,
+                                       lazy.resets, benv.reset(st)[1])]
+    c, h = outs[DEVICE], outs["cpu"]
+    errs = [float((x - y).abs().max()) for x, y in zip(c[:4] + c[8:],
+                                                      h[:4] + h[8:])]
+    near = ((h[1][0].abs() - cartpole.X_LIMIT).abs() < 1e-6) | \
+        ((h[1][2].abs() - cartpole.THETA_LIMIT).abs() < 1e-6)
+    flags_equal = torch.equal(c[4], h[4]) and \
+        torch.equal(c[5][~near], h[5][~near]) and \
+        torch.equal(c[6], h[6]) and torch.equal(c[7], h[7])
+    row = {"phase": "cartpole_step", "card": card, "envs": N_ENVS,
+           "max_abs_err": max(errs), "errs": dict(zip(
+               ("physics", "step", "autoreset", "lazy", "reset"), errs)),
+           "flags_equal": flags_equal, "envs_near_a_limit": int(near.sum()),
+           "dones": int(h[5].sum())}
+    emit(row)
+    if not (max(errs) <= 1e-6 and flags_equal):
+        raise SmokeFailure("CartPole on the card differs from the CPU")
+
+    rows = [row]
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_cartpole_")
+    try:
+        for trainer in common.CARTPOLE_TRAINERS:
+            d = os.path.join(logdir, trainer)
+            cfg = Config(trainer=trainer, env_name="cartpole",
+                         num_envs=N_ENVS, total_episodes=1, validate_rate=1,
+                         summary_rate=1, logdir=d,
+                         platform=platform()).derive()
+            window_cuda.launches.clear()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                ts = run_alg(cfg)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            metrics = read_metrics(d)
+            vals = [m["value"] for m in metrics]
+            r = {"phase": "cartpole_train", "trainer": trainer, "card": card,
+                 "envs": N_ENVS, "episodes": ts.episode,
+                 "seconds_with_setup": seconds,
+                 "validation_rewards": [m["value"] for m in metrics
+                                        if m["name"] == "avg_r_summary"],
+                 "on_card": ts.env.s.device.type == DEVICE,
+                 "launches": dict(window_cuda.launches)}
+            emit(r)
+            rows.append(r)
+            check_launches(f"cartpole_{trainer}", {})
+            if not (ts.episode == 1 and vals and r["on_card"]
+                    and all(math.isfinite(v) for v in vals)
+                    and r["validation_rewards"]):
+                raise SmokeFailure(f"cartpole {trainer}: no finite training "
+                                   f"episode and validation on the card")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+
+    cfg = Config(trainer="qlearn", env_name="cartpole", logdir="",
+                 platform=platform(), **CARTPOLE_LEARN_KW).derive()
+    cfg = cfg.replace(history=1, episode_len=200)
+    t0 = time.perf_counter()
+    ctx, ts = qlearn.make_state(cfg)
+    first = float(ctx.fns.greedy_episode(ts)[0])
+    vals = []
+    for i in range(CARTPOLE_LEARN_EPISODES):
+        ctx.fns.run_episode(ts)
+        if (i + 1) % 10 == 0:
+            vals.append(float(ctx.fns.greedy_episode(ts)[0]))
+    seconds = time.perf_counter() - t0
+    best = max([first] + vals)
+    bar = max(2 * first, first + 20)
+    r = {"phase": "cartpole_learn", "card": card, "envs": cfg.num_envs,
+         "episodes": CARTPOLE_LEARN_EPISODES, "episode_len": cfg.episode_len,
+         "first": first, "validations": vals, "best": best, "bar": bar,
+         "sgd_steps": ts.train_steps, "seconds": seconds,
+         "agent_step_ms": seconds / (CARTPOLE_LEARN_EPISODES
+                                     * cfg.episode_len) * 1e3}
+    emit(r)
+    rows.append(r)
+    if not best > bar:
+        raise SmokeFailure(f"qlearn did not learn CartPole: best {best}, "
+                           f"bar {bar}")
+    return rows
+
+
 # -- mesh: the sharded path ---------------------------------------------------
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2794,6 +3134,7 @@ def main():
         "qlearn_train_validation_rewards": train_row["validation_rewards"],
         "qlearn_validate_rewards": val_row["rewards"]})
     render_phase(card)
+    prof_rows = profiler_phase(card)
     mesh1_row = mesh_world1_phase(card)
     mesh_row = mesh_phase(card)
     exact_rows = exact_qlearn_phase(card, args.exact_envs)
@@ -2804,6 +3145,7 @@ def main():
                 for name, kw in (("a3c", {}), ("a3c_conv", A3C_CONV_KW))}
     recurrent_phase(card, "qrnn", {})
     recurrent_phase(card, "polgrad_rnn", PG_KW)
+    cart_rows = cartpole_phase(card)
     learner_rows = {"qrnn": qrnn_timing_phase(card),
                     "polgrad_rnn": polgrad_timing_phase(card),
                     "cem": cem_phase(card)[1]}
@@ -2853,6 +3195,18 @@ def main():
           **{f"ticks_{r['case']}_{k}": r[k] for r in tick_rows
              for k in ("window_step_ms", "per_tick_step_ms",
                        "lazy_ticks_step_ms", "tick_stack_bytes")},
+          **{f"profiler_{k}_env_steps_per_s": prof_rows[k][
+              "env_steps_per_sec"] for k in ("window", "fast")},
+          "profiler_qlearn_train_env_steps_per_s":
+              prof_rows["qlearn"]["train_env_steps_per_sec"],
+          **{f"profiler_{k}_{m}": prof_rows[f"{k}_trace"][m]
+             for k in ("bench", "qlearn")
+             for m in ("host_ops_per_step", "kernel_launches_per_step",
+                       "window_share_of_traced_step",
+                       "device_idle_share_traced")},
+          "cartpole_learn_first_best": [cart_rows[-1]["first"],
+                                        cart_rows[-1]["best"]],
+          "cartpole_learn_agent_step_ms": cart_rows[-1]["agent_step_ms"],
           "mesh_world1_seconds_with_startup":
               mesh1_row["seconds_with_startup"],
           "mesh_seconds_with_startup": mesh_row["seconds_with_startup"],

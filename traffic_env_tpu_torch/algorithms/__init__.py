@@ -33,6 +33,10 @@ def run_alg(cfg: Config):
     if name not in _PORTED:
         raise ValueError(f"unknown trainer {name!r}; choose from "
                          f"{_PORTED}")
+    if cfg.env_name == "cartpole":
+        # before any rank starts: the fixture runs on one rank
+        from .common import check_cartpole
+        check_cartpole(cfg)
     if not (cfg.mesh_shape or cfg.num_processes > 1):
         return _run(cfg)
     dp, mp = parallel.mesh_dims(cfg.mesh_shape) if cfg.mesh_shape \

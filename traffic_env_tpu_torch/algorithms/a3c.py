@@ -52,7 +52,7 @@ from ..models.nets import A3CNet, ConvGRUA3CNet
 from ..ops.discount import gae
 from .common import (build_env, env_shard, env_state_dict, handle_modes,
                      load_env_state, make_expert_action, refresh_schedule,
-                     validate_telemetry, validation_hook)
+                     trip_hist, validate_telemetry, validation_hook)
 from .exploration import anneal, entropy, sigmoid_decision, sigmoid_greedy
 
 F32 = torch.float32
@@ -315,12 +315,12 @@ def make_fns(cfg: Config, benv, topo) -> A3CFns:
                 step_r = torch.mean(rew, dim=0) * alive.to(F32)
                 total = total + torch.mean(step_r) * disc
                 n1 = n1 + a.sum()
-                if validate:
+                if validate and info is not None:
                     lts.append(info["light_times"])
                 alive = alive & ~done
         onep = n1.to(F32) / (cfg.episode_len * I * B)
         total, onep = parallel.all_reduce([total, onep], "mean")
-        return total, env, onep, torch.stack(lts) if validate else None
+        return total, env, onep, torch.stack(lts) if lts else None
 
     return A3CFns(rollout=rollout, loss_fn=loss_fn, update=update,
                   run_window=run_window,
@@ -343,7 +343,7 @@ def make_state(cfg: Config):
     init_gen = torch.Generator()
     init_gen.manual_seed(int(cfg.seed))
     I = benv.n_intersections
-    obs_size = max(int(cfg.history), 1) * benv.obs_dim
+    obs_size = int(np.prod(benv.env.observation_space.shape))
     if cfg.conv_gru:
         net = ConvGRUA3CNet(cfg.grid_m, cfg.grid_n, obs_size,
                             generator=init_gen)
@@ -415,7 +415,7 @@ def train(cfg: Config, ctx: A3CCtx, ts: A3CTS, writer, ckpt):
 
 def validate(cfg: Config, ctx: A3CCtx, ts: A3CTS):
     # greedy_episode works on a copy, so ts's histogram stays as it was
-    th0 = ts.env.sim.trip_hist
+    th0 = trip_hist(ts.env)
     reward, env_final, onep, lt = ctx.fns.greedy_episode(ts)
     info = validate_telemetry(cfg, ctx.benv, env_final, th0, float(onep),
                               light_times=lt)

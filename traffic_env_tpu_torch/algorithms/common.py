@@ -6,6 +6,10 @@ the logdir (wipe and settings.json on a fresh run, restore on
 --restore), checkpoints, and validation bookkeeping with the
 validate-mode telemetry.
 
+With ``--env_name=cartpole`` the env is the CartPole fixture
+(``envs/cartpole.py``) and the grid None, as in the JAX package: there
+the telemetry is None, nothing is rendered and no schedule refreshed.
+
 On the ranks of a sharded run (``parallel/dist.py``) ``build_env``
 builds the rank's shard of the envs; rank 0 alone writes the logdir,
 and a checkpoint holds the global state (``env_state_dict``), so it
@@ -24,6 +28,7 @@ import torch
 from .. import parallel
 from ..config import (Config, derive_spawn_rate, entry_spec,
                       explicit_cli_flags)
+from ..envs.cartpole import CartPoleState, make_cartpole_benv
 from ..envs.fast_core import cars_per_road
 from ..envs.env import EnvState
 from ..envs.rollout import BatchedEnv, make_batched_env
@@ -81,7 +86,7 @@ def exact_max_per_tick(cfg: Config) -> int:
 
 
 def build_env(cfg: Config, n_envs: int | None = None, core: str = "window"
-              ) -> tuple[GridRoad, Config, BatchedEnv]:
+              ) -> tuple[GridRoad | None, Config, BatchedEnv]:
     """The batched traffic env of ``n_envs`` (``cfg.num_envs`` by
     default) for ``cfg`` on ``device_of(cfg)`` and ``core`` ("window",
     or "fast" for the per-tick core): the grid with its entry mask, the
@@ -91,10 +96,12 @@ def build_env(cfg: Config, n_envs: int | None = None, core: str = "window"
     ``ScheduleStream`` to the schedule mode, ``exact_max_per_tick`` rows
     a tick.  On a sharded run the env is this rank's shard
     (``parallel.env_slice``), which raises when the envs do not divide
-    over dp."""
+    over dp.  With ``--env_name=cartpole`` the grid is None and the env
+    the CartPole fixture (``envs/cartpole.py``), as in the JAX package."""
     if cfg.env_name == "cartpole":
-        raise NotImplementedError("the CartPole fixture is not ported yet "
-                                  "(ROADMAP queue 1, item 10)")
+        check_cartpole(cfg)
+        return None, cfg, make_cartpole_benv(n_envs or cfg.num_envs,
+                                             device_of(cfg))
     topo = GridRoad(cfg.grid_m, cfg.grid_n, cfg.road_length)
     spec = entry_spec(cfg)
     topo.set_entry_mask(spec)
@@ -114,6 +121,34 @@ def build_env(cfg: Config, n_envs: int | None = None, core: str = "window"
                             max_spawns_per_tick=k, device=device_of(cfg),
                             core=core, **shard)
     return topo, cfg, attach_schedule_stream(benv, stream)
+
+
+# the learners that run on the CartPole fixture: cem's policy and the
+# scripted baselines read the traffic simulator
+CARTPOLE_TRAINERS = ("qlearn", "qrnn", "a3c", "polgrad_rnn")
+
+
+def check_cartpole(cfg: Config) -> None:
+    """Raise ``ValueError`` for what the CartPole fixture cannot run: a
+    trainer outside ``CARTPOLE_TRAINERS``, the grid-native
+    ``--conv_gru``, the imitation flags (their experts read the grid) and
+    more than one rank (the JAX package builds the fixture before its
+    mesh, so there is no sharded CartPole to hold a port to)."""
+    fixture = "the CartPole fixture (--env_name=cartpole)"
+    if cfg.trainer not in CARTPOLE_TRAINERS:
+        raise ValueError(f"--trainer={cfg.trainer} does not run on "
+                         f"{fixture}: it reads the traffic simulator; "
+                         f"choose from {CARTPOLE_TRAINERS}")
+    if cfg.conv_gru:
+        raise ValueError(f"--conv_gru needs the intersection grid, which "
+                         f"{fixture} has not")
+    if cfg.bc_episodes or cfg.bc_anchor > 0:
+        raise ValueError(f"--bc_episodes / --bc_anchor: the imitation "
+                         f"experts read the traffic grid, which {fixture} "
+                         f"has not")
+    if cfg.mesh_shape or cfg.num_processes > 1 or parallel.world() > 1:
+        raise ValueError(f"{fixture} runs on one rank: drop --mesh_shape "
+                         f"and --num_processes")
 
 
 def env_shard(benv) -> tuple[int, int]:
@@ -270,7 +305,10 @@ def render_episode(cfg: Config, benv: BatchedEnv, env, obs, act):
     keeps its ticks on the card, so with ``--render_ticks`` the episode
     runs on the per-tick core, rebuilt for ``cfg`` on the same device.
     ``act(t, env, obs) -> (I, B)`` actions.  Returns the env state after
-    the episode."""
+    the episode; the CartPole fixture has nothing to draw, so its
+    ``env`` comes back as it was."""
+    if benv.env.sim_fns is None:
+        return env
     topo = GridRoad(cfg.grid_m, cfg.grid_n, cfg.road_length)
     # on a sharded run every rank steps the episode and rank 0 draws
     rend = make_renderer(cfg, topo) if parallel.is_primary() else None
@@ -301,7 +339,9 @@ def render_greedy(cfg: Config, ctx, state, policy_step: Callable):
     """--render for the learners: a greedy episode of ``policy_step(ctx,
     state)`` from a full reset of a copy of the training env (the
     window writes its state in place; the JAX package's reset is
-    pure)."""
+    pure).  The CartPole fixture has nothing to draw."""
+    if ctx.benv.env.sim_fns is None:
+        return
     step_pi = policy_step(ctx, state)
     box = [None]
 
@@ -329,9 +369,9 @@ def validation_hook(cfg: Config, ckpt: Checkpointer, writer: MetricWriter,
 def _ensure_trip_hist(cfg: Config, state):
     """A checkpoint written in train mode carries trip_hist=None; a
     validate-mode restore attaches an empty histogram (validate-only
-    state, not learned state)."""
-    sim = state.env.sim
-    if sim.trip_hist is None:
+    state, not learned state).  The CartPole fixture has none."""
+    sim = getattr(state.env, "sim", None)
+    if sim is not None and sim.trip_hist is None:
         th = torch.zeros((cfg.episode_ticks + 2,) + tuple(sim.done.shape),
                          dtype=torch.int32, device=sim.done.device)
         state.env = state.env.replace(sim=sim.replace(trip_hist=th))
@@ -345,8 +385,9 @@ def validate_telemetry(cfg: Config, benv, env_after, trip_hist_before,
     times drained from the histogram's growth, and the cars left on the
     roads per env, over the global batch: the light times (T, I, B) are
     gathered and the counts summed over the ranks; ``ones_fraction`` is
-    the caller's global one.  None outside validate mode."""
-    if cfg.mode != "validate":
+    the caller's global one.  None outside validate mode and on the
+    CartPole fixture, which has no simulator."""
+    if cfg.mode != "validate" or benv.env.sim_fns is None:
         return None
     sim = env_after.sim
     trip_times: list = []
@@ -368,18 +409,33 @@ def validate_telemetry(cfg: Config, benv, env_after, trip_hist_before,
             "unfinished": unfinished}
 
 
-def env_state_dict(env: EnvState) -> dict:
+def trip_hist(env):
+    """The validate-mode trip histogram of an env state: None outside
+    validate mode and for the CartPole fixture's state."""
+    sim = getattr(env, "sim", None)
+    return None if sim is None else sim.trip_hist
+
+
+def env_state_dict(env: EnvState | CartPoleState) -> dict:
     """The checkpoint's env entries, ``{"sim": {leaf: tensor},
     "history": tensor}``: on a sharded run every leaf is the global
-    batch, gathered from the ranks (every rank takes part)."""
+    batch, gathered from the ranks (every rank takes part).  The
+    CartPole fixture's state (one rank) is ``{"cartpole": {leaf:
+    tensor}}``."""
+    if isinstance(env, CartPoleState):
+        return {"cartpole": dict(vars(env))}
     return {"sim": {k: None if v is None else parallel.all_gather(v)
                     for k, v in vars(env.sim).items()},
             "history": parallel.all_gather(env.history)}
 
 
-def load_env_state(env: EnvState, sd: dict, dev) -> EnvState:
+def load_env_state(env: EnvState | CartPoleState, sd: dict, dev
+                   ) -> EnvState | CartPoleState:
     """``env`` with the checkpoint's env entries (``env_state_dict``'s,
     tensors on any device), this rank's shard of them on ``dev``."""
+    if isinstance(env, CartPoleState):
+        return CartPoleState(**{k: v.to(dev)
+                                for k, v in sd["cartpole"].items()})
     sim = SimState(**{k: None if v is None else
                       parallel.shard(v).to(dev)
                       for k, v in sd["sim"].items()})

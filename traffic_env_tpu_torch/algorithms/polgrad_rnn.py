@@ -48,7 +48,7 @@ from .a3c import (all_reduce_grads, normalize_advantages, sigmoid_bce,
                   window_lr)
 from .common import (build_env, env_shard, env_state_dict, handle_modes,
                      load_env_state, make_expert_action, refresh_schedule,
-                     validate_telemetry, validation_hook)
+                     trip_hist, validate_telemetry, validation_hook)
 from .exploration import anneal, sigmoid_decision, sigmoid_greedy
 
 F32 = torch.float32
@@ -77,7 +77,7 @@ class PGTS:
     def load_state_dict(self, sd: dict) -> None:
         """Load ``sd`` (tensors on any device) into this state, keeping
         its device."""
-        dev = self.env.history.device
+        dev = next(self.net.parameters()).device
         self.net.load_state_dict(sd["net"])
         self.opt.load_state_dict(sd["opt"])
         for acc, g in zip(self.grad_acc, sd["grad_acc"]):
@@ -259,7 +259,7 @@ def make_fns(cfg: Config, benv, topo) -> PGFns:
                 step_r = torch.mean(rew, dim=0) * alive.to(F32)
                 total = total + torch.mean(step_r) * disc
                 n1 = n1 + a.sum()
-                if validate:
+                if validate and info is not None:
                     lts.append(info["light_times"])
                 alive = alive & ~done
         if cfg.print_avg:
@@ -267,7 +267,7 @@ def make_fns(cfg: Config, benv, topo) -> PGFns:
                              (cfg.gamma ** T - 1) / (cfg.gamma - 1))
         onep = n1.to(F32) / (T * I * B)
         total, onep = parallel.all_reduce([total, onep], "mean")
-        return total, env, onep, torch.stack(lts) if validate else None
+        return total, env, onep, torch.stack(lts) if lts else None
 
     def greedy_episode(ts: PGTS):
         """Greedy validation from a fresh reset of a copy of the
@@ -293,7 +293,7 @@ def make_state(cfg: Config):
     env = benv.init(gen)
     init_gen = torch.Generator()
     init_gen.manual_seed(int(cfg.seed))
-    obs_size = max(int(cfg.history), 1) * benv.obs_dim
+    obs_size = int(np.prod(benv.env.observation_space.shape))
     net = PolGradNet(obs_size, benv.n_intersections,
                      generator=init_gen).to(dev)
     ts = PGTS(net=net,
@@ -328,7 +328,7 @@ def train(cfg: Config, ctx: PGCtx, ts: PGTS, writer, ckpt):
 
 def validate(cfg: Config, ctx: PGCtx, ts: PGTS):
     # greedy_episode works on a copy, so ts's histogram stays as it was
-    th0 = ts.env.sim.trip_hist
+    th0 = trip_hist(ts.env)
     reward, env_final, onep, lt = ctx.fns.greedy_episode(ts)
     info = validate_telemetry(cfg, ctx.benv, env_final, th0, float(onep),
                               light_times=lt)

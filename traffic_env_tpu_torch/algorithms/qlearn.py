@@ -47,8 +47,8 @@ from ..envs.env import EnvState
 from ..envs.extra_wrappers import ungspace_actions
 from ..models.nets import ConvQNet, QNet
 from .common import (build_env, env_shard, env_state_dict, handle_modes,
-                     load_env_state, refresh_schedule, validate_telemetry,
-                     validation_hook)
+                     load_env_state, refresh_schedule, trip_hist,
+                     validate_telemetry, validation_hook)
 from .exploration import exploration_param, softmax_decision
 from .replay import FrameReplay
 
@@ -232,12 +232,12 @@ def make_fns(cfg: Config, benv) -> QLearnFns:
             step_r = torch.mean(rew, dim=0) * alive.to(F32)
             total = total + torch.mean(step_r) * disc
             n1 = n1 + ea.sum()
-            if validate:
+            if validate and info is not None:
                 lts.append(info["light_times"])
             alive = alive & ~done
         onep = n1.to(F32) / (cfg.episode_len * I * B)
         total, onep = parallel.all_reduce([total, onep], "mean")
-        return total, env, onep, torch.stack(lts) if validate else None
+        return total, env, onep, torch.stack(lts) if lts else None
 
     def greedy_episode(ts: QLearnTS):
         """Greedy validation from a fresh reset of a copy of the
@@ -267,7 +267,9 @@ def make_state(cfg: Config):
     gen.manual_seed(int(cfg.seed))
     env = benv.init(gen)
     env, obs = benv.reset(env)
-    k = max(int(cfg.history), 1)
+    # the stack depth and frame width of the env's observation space
+    obs_shape = benv.env.observation_space.shape
+    k = obs_shape[0] if len(obs_shape) == 2 else 1
     # --single_agent: one head over the 2^I joint phases, the reward
     # averaged; otherwise one binary head per intersection
     heads, choices = (1, 2 ** I) if cfg.single_agent else (I, 2)
@@ -329,7 +331,7 @@ def train(cfg: Config, ctx: QLearnCtx, ts: QLearnTS, writer, ckpt):
 
 def validate(cfg: Config, ctx: QLearnCtx, ts: QLearnTS):
     # greedy_episode works on a copy, so ts's histogram stays as it was
-    th0 = ts.env.sim.trip_hist
+    th0 = trip_hist(ts.env)
     reward, env_final, onep, lt = ctx.fns.greedy_episode(ts)
     info = validate_telemetry(cfg, ctx.benv, env_final, th0, float(onep),
                               light_times=lt)

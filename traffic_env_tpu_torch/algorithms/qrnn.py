@@ -49,8 +49,8 @@ from ..envs.env import EnvState
 from ..envs.extra_wrappers import ungspace_actions
 from ..models.nets import DuelingQRNN
 from .common import (build_env, env_shard, env_state_dict, handle_modes,
-                     load_env_state, refresh_schedule, validate_telemetry,
-                     validation_hook)
+                     load_env_state, refresh_schedule, trip_hist,
+                     validate_telemetry, validation_hook)
 from .exploration import exploration_param, softmax_decision
 from .replay import EpisodeReplay
 
@@ -84,7 +84,7 @@ class QRnnTS:
     def load_state_dict(self, sd: dict) -> None:
         """Load ``sd`` (tensors on any device) into this state, keeping
         its device."""
-        dev = self.env.history.device
+        dev = next(self.main.parameters()).device
         self.main.load_state_dict(sd["main"])
         self.target.load_state_dict(sd["target"])
         self.opt.load_state_dict(sd["opt"])
@@ -154,7 +154,7 @@ def make_fns(cfg: Config, benv) -> QRnnFns:
                 act_l.append(a)
                 rew_l.append(learn_reward(rew.T))
                 done_l.append(done)
-                if validate:
+                if validate and info is not None:
                     lts.append(info["light_times"])
         return env, obs_l, act_l, rew_l, done_l, lts
 
@@ -233,7 +233,7 @@ def make_fns(cfg: Config, benv) -> QRnnFns:
             alive = alive & ~done_l[t]
         onep = n1.to(F32) / (T * I * B)
         total, onep = parallel.all_reduce([total, onep], "mean")
-        return total, env, onep, torch.stack(lts) if validate else None
+        return total, env, onep, torch.stack(lts) if lts else None
 
     def greedy_episode(ts: QRnnTS):
         """Greedy validation from a fresh reset of a copy of the
@@ -259,7 +259,7 @@ def make_state(cfg: Config):
     env = benv.init(gen)
     heads, choices = (1, 2 ** I) if cfg.single_agent else (I, 2)
     reward_size = 1 if cfg.single_agent or cfg.squish_rewards else I
-    obs_dim = max(int(cfg.history), 1) * benv.obs_dim
+    obs_dim = int(np.prod(benv.env.observation_space.shape))
     init_gen = torch.Generator()
     init_gen.manual_seed(int(cfg.seed))
     main = DuelingQRNN(obs_dim, heads, choices, generator=init_gen).to(dev)
@@ -303,7 +303,7 @@ def train(cfg: Config, ctx: QRnnCtx, ts: QRnnTS, writer, ckpt):
 
 def validate(cfg: Config, ctx: QRnnCtx, ts: QRnnTS):
     # greedy_episode works on a copy, so ts's histogram stays as it was
-    th0 = ts.env.sim.trip_hist
+    th0 = trip_hist(ts.env)
     reward, env_final, onep, lt = ctx.fns.greedy_episode(ts)
     info = validate_telemetry(cfg, ctx.benv, env_final, th0, float(onep),
                               light_times=lt)

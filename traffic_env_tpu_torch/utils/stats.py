@@ -1,6 +1,9 @@
 """Streaming episode statistics and validation artifacts (counterpart of
-``traffic_env_tpu/utils/stats.py``, numpy only: the hist.png plot of
-the JAX package is not drawn; the telemetry series are saved as .npy).
+``traffic_env_tpu/utils/stats.py``): the validate-mode telemetry series
+saved as .npy beside ``hist.png``, the JAX package's three stacked
+histograms.  matplotlib is imported only to draw, with the Agg backend;
+where it does not import, the .npy files are still written and one line
+says that the plot was not drawn.
 
 Output format kept verbatim so that log parsers read either package:
 
@@ -82,9 +85,66 @@ def print_running_stats(episodes, max_iterations=None):
     return telemetry.as_tuple()
 
 
+def make_plot(cfg, light_times, trip_times, unfinished):
+    """Three stacked histograms with dashed mean markers, titled by
+    trainer (the JAX package's hist.png layout).  Raises ImportError
+    without matplotlib."""
+    import matplotlib
+    matplotlib.use("Agg", force=False)
+    import matplotlib.pyplot as plt
+
+    fig, axes = plt.subplots(3, 1, figsize=(6.4, 4.8))
+    fig.suptitle("Stats for " + cfg.trainer, fontweight="bold",
+                 fontsize=14)
+    fig.subplots_adjust(hspace=0.5)
+    panels = [("Light Times", light_times), ("Trip Times", trip_times),
+              ("Unfinished", unfinished)]
+    for ax, (title, data) in zip(axes, panels):
+        ax.set_title(title)
+        if len(data):
+            ax.hist(data, color="c")
+            ax.axvline(float(np.mean(data)), color="b",
+                       linestyle="dashed", linewidth=2)
+    return fig
+
+
+def _plot_or_none(cfg, light_times, trip_times, unfinished):
+    """``make_plot``'s figure, or None with one line saying why, where
+    matplotlib does not import."""
+    try:
+        return make_plot(cfg, light_times, trip_times, unfinished)
+    except ImportError as e:
+        print(f"hist.png not drawn: matplotlib does not import ({e})")
+        return None
+
+
 def write_data(cfg, light_times, trip_times, unfinished, outdir="."):
-    """Persist the validation telemetry, one .npy per series."""
+    """Persist the validation artifacts: one .npy per telemetry series,
+    and hist.png where matplotlib imports."""
     series = {"light_times": light_times, "trip_times": trip_times,
               "unfinished": unfinished}
     for name, data in series.items():
         np.save(os.path.join(outdir, name + ".npy"), data)
+    fig = _plot_or_none(cfg, light_times, trip_times, unfinished)
+    if fig is not None:
+        import matplotlib.pyplot as plt
+        fig.savefig(os.path.join(outdir, "hist.png"))
+        plt.close(fig)
+
+
+def display_data(cfg, light_times, trip_times, unfinished):
+    """Interactive summary: the histogram figure (Agg, returned rather
+    than shown; None without matplotlib) and a mean/mode/std line per
+    telemetry series."""
+    fig = _plot_or_none(cfg, light_times, trip_times, unfinished)
+    for name, data in (("Light times", light_times),
+                       ("Trip times", trip_times),
+                       ("Unfinished", unfinished)):
+        if not len(data):
+            continue
+        arr = np.asarray(data)
+        vals, counts = np.unique(arr, return_counts=True)
+        mode = float(vals[np.argmax(counts)])
+        print("%s mean %2f, mode %2f, std %2f"
+              % (name, float(np.mean(arr)), mode, float(np.std(arr))))
+    return fig

@@ -141,6 +141,22 @@ Phases, one JSON line each:
    and the window's share and the device's idle share of the traced
    step (device times over the trace's own span), beside the step's ms
    unprofiled.
+   gather_core: the gather core (``envs/core.py``, exact and parallel
+   hand-offs) on the bench config: in schedule mode at 128 envs each
+   core on the card bit-equal to the same run on the CPU (10 lazy steps
+   after a reset from given phases and actions: obs, reward, done, the
+   final state) and to the window env on the card; with device spawns
+   at 4096 envs, 10 lazy steps of the exact and parallel cores
+   bit-equal to the fast core and the window env (obs, reward, done,
+   x/v/w and the integer planes), ms a step by CUDA events and torch
+   ops a step; then ``profiler.py --core=exact`` and ``--core=parallel``
+   at 4096 envs (two timed episodes of 10 agent steps after one
+   warm-up).  The gather cores launch no window kernel.
+   native: the native C++ simulator (``runtime/native.py``, g++ into
+   ``_build/``) on the host: 600 ticks of the bench config equal to the
+   port's NumPy oracle (obs, reward, done, remi, overflow resets,
+   pointers), then env-steps/s/core of ``NativeSim.run`` timed as the
+   JAX package's ``bench.py --core=native``.
    mesh_world1: the sharded CLI at world 1, ``python -m
    traffic_env_tpu_torch --trainer=qlearn --mesh_shape=1`` in a
    subprocess (NCCL, one rank), 2 training episodes with a validation
@@ -186,7 +202,8 @@ Phases, one JSON line each:
 
 Then the ``kernels`` line, the nvidia-smi line, and last the ``ok``
 line.  ``--tune`` adds phase 13 and ``--parent DIR`` phase 14.
-``--mesh_only`` runs the card, build and mesh phases alone.  Any
+``--mesh_only`` runs the card, build and mesh phases alone,
+``--sim_only`` the card, build, gather_core and native phases.  Any
 failure exits non-zero before the ``ok`` line; without a CUDA device the
 script exits non-zero at once.
 """
@@ -2554,6 +2571,272 @@ def profiler_phase(card):
     return rows
 
 
+# the gather core's phase: envs of the card-against-CPU schedule runs,
+# their agent steps, the device-spawn steps at N_ENVS, and the profiler
+# sweep's episodes of GATHER_SWEEP_SECS (10 agent steps each)
+GATHER_PARITY_ENVS = 128
+GATHER_PARITY_STEPS = 10
+GATHER_DEVICE_STEPS = 10
+GATHER_SWEEP_SECS = 50
+GATHER_SWEEP_EPISODES = 2
+SIM_LEAF_NAMES = ("leading", "lastcar", "phase", "elapsed", "passed",
+                  "detected", "waiting", "passed_dst", "steps",
+                  "global_tick", "spawn_gap", "spawn_backlog", "done",
+                  "seed", "resets")
+
+
+def steps_equal(name, ref, outs):
+    """Every step's obs, reward and done of ``outs`` equal ``ref``'s."""
+    for t, (ro, go) in enumerate(zip(ref, outs)):
+        for what, u, v in zip(("obs", "reward", "done"), ro, go):
+            if not torch.equal(u.cpu(), v.cpu()):
+                raise SmokeFailure(f"gather_core {name}: {what} differs at "
+                                   f"step {t}")
+
+
+def gather_planes_equal(name, compact, other):
+    """A state's x/v/w rows and integer planes equal the compact
+    state's (the window's): ``other`` compact too (the fast core's) or
+    the gather core's, with all ten car rows."""
+    bad = [k for k in SIM_LEAF_NAMES
+           if not torch.equal(getattr(compact, k), getattr(other, k))]
+    xvw = (other.cars if other.cars.shape[1] == compact.cars.shape[1]
+           else other.cars[:, [C.X, C.V, C.W]])
+    if not torch.equal(compact.cars, xvw):
+        bad.append("cars x/v/w")
+    if bad:
+        raise SmokeFailure(f"gather_core {name}: state differs in {bad}")
+
+
+def gather_core_phase(card):
+    """The gather core (``envs/core.py``, exact and parallel hand-offs)
+    on the bench config (3x3, 250 m, 1.44 cars/s, remi, lazy
+    autoreset).  Schedule mode at GATHER_PARITY_ENVS envs: each core on
+    the card bit-equal to the same run on the CPU (every step's obs,
+    reward, done and the final state), and to the window env on the card
+    (obs, reward, done).  Device spawns at N_ENVS: the exact and parallel
+    cores bit-equal to the fast core and the window env (obs, reward,
+    done each step, x/v/w and the integer planes at the end), ms a step
+    by CUDA events and torch ops a step.  Then the profiler's sweep on
+    each core (``--core=exact|parallel``, N_ENVS envs, GATHER_SWEEP_SECS
+    episodes).  The gather cores launch no window kernel."""
+    from traffic_env_tpu_torch import profiler
+    from traffic_env_tpu_torch.interop import schedule_from_arrays
+    topo = GridRoad(3, 3, 250.0)
+    cfg = bench_config(topo)
+    I, W = topo.intersections, cfg.light_iterations
+    B, T = GATHER_PARITY_ENVS, GATHER_PARITY_STEPS
+    rows = {}
+    rng = np.random.RandomState(31)
+    n_act = 1 + cfg.warmup_lights
+    host = ScheduleStream(topo, cfg, list(range(1000, 1000 + B)),
+                          (n_act + T + 2) * W, exact_max_per_tick(cfg)
+                          ).window(np.zeros(B, np.int64))
+    K = max(1, int(host.counts.max()))
+    host = host._replace(roads=host.roads[:, :K])
+    phase = torch.as_tensor(rng.randint(2, size=(I, B)).astype(np.int32))
+    racts = torch.as_tensor(rng.randint(2, size=(n_act, I, B)).astype(
+        np.int32))
+    acts = [torch.as_tensor(rng.randint(2, size=(I, B)).astype(np.int32))
+            for _ in range(T)]
+    runs = {}
+    for core in ("window", "exact", "parallel"):
+        for dev in (("cuda", "cpu") if core != "window" else ("cuda",)):
+            d = DEVICE if dev == "cuda" else "cpu"
+            env = bind_schedule(make_batched_env(
+                topo, cfg, B, on_device_spawns=False, max_spawns_per_tick=K,
+                device=d, core=core), schedule_from_arrays(host, d))
+            gen = torch.Generator()
+            gen.manual_seed(3)
+            st, obs = env.reset(env.init(gen), phase=phase.to(d),
+                                actions=racts.to(d))
+            window_cuda.launches.clear()
+            t0 = time.perf_counter()
+            outs = []
+            for a in acts:
+                st, *o = env.step_autoreset_lazy(st, a.to(d))
+                outs.append([x.cpu() for x in o[:3]])
+            seconds = time.perf_counter() - t0
+            path = f"gather_schedule_{core}_{dev}"
+            check_launches(path, {"window": T} if core == "window" else {})
+            runs[core, dev] = (st, [obs.cpu()], outs, seconds)
+    ref = runs["window", "cuda"]
+    for core in ("exact", "parallel"):
+        (gst, gobs, gouts, gsec), (cst, cobs, couts, csec) = \
+            runs[core, "cuda"], runs[core, "cpu"]
+        steps_equal(f"{core} cuda vs cpu", couts, gouts)
+        steps_equal(f"{core} vs window", ref[2], gouts)
+        if not (torch.equal(gobs[0], cobs[0])
+                and torch.equal(gobs[0], ref[1][0])):
+            raise SmokeFailure(f"gather_core {core}: reset obs differs")
+        diffs = {k: leaf_diff(v, getattr(cst.sim, k).to(v.device))[1]
+                 for k, v in sim_leaves(gst.sim).items()
+                 if not leaf_diff(v, getattr(cst.sim, k).to(v.device))[0]}
+        if diffs:
+            raise SmokeFailure(f"gather_core {core}: card state differs "
+                               f"from the CPU's {diffs}")
+        gather_planes_equal(f"{core} schedule vs window", ref[0].sim,
+                            gst.sim)
+        rows[f"schedule_{core}"] = {
+            "envs": B, "agent_steps": T, "schedule_columns": K,
+            "card_s_a_step": gsec / T, "cpu_s_a_step": csec / T,
+            "dones": int(sum(int(o[2].sum()) for o in gouts))}
+
+    # device spawns at N_ENVS: one Philox stream, four cores, each from
+    # its own reset of the same seeds
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(42)
+    dacts = [torch.randint(0, 2, (I, N_ENVS), dtype=torch.int32,
+                           generator=gen, device=DEVICE)
+             for _ in range(GATHER_DEVICE_STEPS)]
+    envs = {core: make_batched_env(topo, cfg, N_ENVS, device=DEVICE,
+                                   core=core)
+            for core in ("window", "fast", "exact", "parallel")}
+    out = {}
+    for core, env in envs.items():
+        gen.manual_seed(41)
+        start, _ = env.reset(env.init(gen))
+        window_cuda.launches.clear()
+        out[core] = run_steps(env, "step_autoreset_lazy", start, dacts)
+        check_launches(f"gather_device_{core}",
+                       {"window": GATHER_DEVICE_STEPS}
+                       if core == "window" else {})
+    for core in ("fast", "exact", "parallel"):
+        steps_equal(f"device {core} vs window",
+                    [o[:3] for o in out["window"][1]],
+                    [o[:3] for o in out[core][1]])
+        gather_planes_equal(f"device {core} vs window",
+                            out["window"][0].sim, out[core][0].sim)
+    for core in ("exact", "parallel"):
+        st = out[core][0].clone()
+        n_ops = torch_ops(lambda: envs[core].step_autoreset_lazy(st,
+                                                                 dacts[0]))
+        rows[f"device_{core}"] = {
+            "envs": N_ENVS, "agent_steps": GATHER_DEVICE_STEPS,
+            "step_ms": out[core][2], "torch_ops_per_step": n_ops,
+            "host_us_per_op": out[core][2] * 1e3 / n_ops,
+            "window_step_ms": out["window"][2],
+            "fast_step_ms": out["fast"][2],
+            "over_window": out[core][2] / out["window"][2],
+            "state_bytes": state_bytes(out[core][0].sim),
+            "dones": int(sum(int(o[2].sum()) for o in out[core][1]))}
+
+    # the profiler's sweep on each gather core
+    for core in ("exact", "parallel"):
+        argv = [f"--num_envs={N_ENVS}",
+                f"--episodes={GATHER_SWEEP_EPISODES}", f"--core={core}",
+                f"--platform={platform()}"]
+        window_cuda.launches.clear()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            row, _ = profiler.sweep(profiler.parse_args(argv),
+                                    episode_secs=GATHER_SWEEP_SECS)
+        seconds = time.perf_counter() - t0
+        check_launches(f"profiler_{core}", {})
+        printed = [json.loads(l) for l in buf.getvalue().splitlines()
+                   if l.startswith("{")]
+        steps = GATHER_SWEEP_EPISODES * int(GATHER_SWEEP_SECS
+                                            / cfg.light_secs)
+        if printed != [row] or not row["env_steps_per_sec"] > 0:
+            raise SmokeFailure(f"profiler sweep {core}: printed {printed}")
+        rows[f"sweep_{core}"] = {**row, "agent_steps": steps,
+                                 "step_ms": row["wall_s"] / steps * 1e3,
+                                 "seconds_with_setup": seconds}
+    emit({"phase": "gather_core", "card": card, "bit_equal": True, **rows})
+    return rows
+
+
+NATIVE_PARITY_TICKS = 600
+
+
+def native_phase(card):
+    """The native C++ simulator (``runtime/native.py``), built with g++
+    into ``_build/``, on the chip machine's host: equal to the port's
+    NumPy oracle over NATIVE_PARITY_TICKS ticks of the bench config
+    (obs, reward, done every tick, remi every window, overflow resets on
+    the same phases, the rings and pointers at the end), then
+    env-steps/s/core of ``NativeSim.run`` on the 3x3 workload, timed as
+    the JAX package's ``bench.py --core=native`` times it: 24 warm-up
+    agent steps, then the best of 3 runs of 120 agent steps (10 ticks
+    each), the actions and arrival lists made before each run."""
+    from traffic_env_tpu_torch.oracle import OracleSim, PoissonSpawner
+    from traffic_env_tpu_torch.runtime import native
+    topo = GridRoad(3, 3, 250.0)
+    cfg = bench_config(topo)
+    I, W = topo.intersections, cfg.light_iterations
+    t0 = time.perf_counter()
+    info = _build.build_host("traffic_native")
+    nsim = native.NativeSim(topo, cfg)
+    build_s = time.perf_counter() - t0
+    oracle = OracleSim(topo, cfg, seed=5)
+    spawner = PoissonSpawner(np.random.RandomState(5), cfg.cars_per_sec,
+                             cfg.rate)
+    rng = np.random.RandomState(77)
+    phase = rng.randint(2, size=I).astype(np.int32)
+    nsim.reset(phase)
+    oracle.reset(phase=phase)
+    resets = 0
+    for t in range(NATIVE_PARITY_TICKS):
+        if t % W == 0:
+            a = rng.randint(2, size=I).astype(np.int32)
+        roads = [r for r, _, _ in spawner.tick(topo.entrypoints)]
+        on, rn, dn, _ = nsim.step(a, roads)
+        oo, ro, do, _ = oracle.step(a)
+        if not (np.array_equal(on, oo) and np.array_equal(rn, ro)
+                and dn == do):
+            raise SmokeFailure(f"native: differs from the oracle at tick {t}")
+        if (t + 1) % W == 0 and not np.array_equal(nsim.remi_reward(),
+                                                    oracle.remi_reward()):
+            raise SmokeFailure(f"native: remi differs at tick {t}")
+        if dn:
+            resets += 1
+            phase = rng.randint(2, size=I).astype(np.int32)
+            nsim.reset(phase)
+            oracle.reset(phase=phase)
+    lead, last = nsim.pointers()
+    if not (np.array_equal(lead, oracle.leading)
+            and np.array_equal(last, oracle.lastcar)
+            and nsim.generated_cars == oracle.generated_cars):
+        raise SmokeFailure("native: pointers or car counts differ")
+
+    # the bench's native baseline
+    spawner = PoissonSpawner(np.random.RandomState(0), cfg.cars_per_sec,
+                             cfg.rate)
+    rng = np.random.RandomState(1)
+    bsim = native.NativeSim(topo, cfg)
+    bsim.reset(rng.randint(2, size=I).astype(np.int32))
+
+    def stream(agent_steps):
+        ticks = agent_steps * W
+        acts = np.repeat(rng.randint(2, size=(agent_steps, I)), W,
+                         axis=0).astype(np.int32)
+        off = np.zeros(ticks + 1, np.int32)
+        roads = []
+        for t in range(ticks):
+            roads.extend(r for r, _, _ in spawner.tick(topo.entrypoints))
+            off[t + 1] = len(roads)
+        return (acts, off, np.asarray(roads, np.int32),
+                rng.randint(2, size=(256, I)).astype(np.int32))
+
+    bsim.run(*stream(24)[:3], W, stream(1)[3])
+    rates = []
+    for _ in range(3):
+        acts, off, roads, ph = stream(120)
+        t0 = time.perf_counter()
+        bsim.run(acts, off, roads, W, ph)
+        rates.append(120 * W / (time.perf_counter() - t0))
+    row = {"phase": "native", "card": card, "build_s": build_s,
+           "gxx_s": info["seconds"], "parity_ticks": NATIVE_PARITY_TICKS,
+           "parity_resets": resets, "generated_cars": nsim.generated_cars,
+           "bit_equal": True,
+           "env_steps_per_sec_per_core": max(rates),
+           "env_steps_per_sec_per_core_runs": rates,
+           "host_cpus": os.cpu_count()}
+    emit(row)
+    return row
+
+
 # the JAX package's slow CartPole test (tests/test_algorithms.py:71-96)
 CARTPOLE_LEARN_KW = dict(num_envs=32, buffer_size=2048, batch_size=64,
                          learning_rate=1e-3, gamma=0.99, start_eps=1.0,
@@ -3086,6 +3369,9 @@ def main():
     ap.add_argument("--mesh_only", action="store_true",
                     help="run only the mesh phases (the card and build "
                     "lines first, the ok line last)")
+    ap.add_argument("--sim_only", action="store_true",
+                    help="run only the gather_core and native phases (the "
+                    "card and build lines first, the ok line last)")
     ap.add_argument("--exact_envs", type=int, default=256,
                     help="envs of the exact_qlearn phase (the JAX "
                     "defaults' 1024 take minutes of host stream time)")
@@ -3111,10 +3397,21 @@ def main():
           "nvcc_seconds": info["seconds"],
           "ptxas": _build.ptxas_usage(info["log"]),
           "ptxas_log": info["log"].strip().splitlines()[-4:]})
+    # the native simulator's g++ build (csrc/traffic_native.cpp)
+    t0 = time.perf_counter()
+    hinfo = _build.build_host("traffic_native")
+    emit({"phase": "build", "library": "traffic_native",
+          "source": "traffic_env_tpu_torch/csrc/traffic_native.cpp",
+          "seconds": time.perf_counter() - t0,
+          "gxx_seconds": hinfo["seconds"]})
 
-    if args.mesh_only:
-        mesh_world1_phase(card)
-        mesh_phase(card)
+    if args.mesh_only or args.sim_only:
+        if args.mesh_only:
+            mesh_world1_phase(card)
+            mesh_phase(card)
+        if args.sim_only:
+            gather_core_phase(card)
+            native_phase(card)
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -3135,6 +3432,8 @@ def main():
         "qlearn_validate_rewards": val_row["rewards"]})
     render_phase(card)
     prof_rows = profiler_phase(card)
+    gather_rows = gather_core_phase(card)
+    native_row = native_phase(card)
     mesh1_row = mesh_world1_phase(card)
     mesh_row = mesh_phase(card)
     exact_rows = exact_qlearn_phase(card, args.exact_envs)
@@ -3199,6 +3498,15 @@ def main():
               "env_steps_per_sec"] for k in ("window", "fast")},
           "profiler_qlearn_train_env_steps_per_s":
               prof_rows["qlearn"]["train_env_steps_per_sec"],
+          **{f"gather_{core}_{k}": gather_rows[f"{part}_{core}"][m]
+             for core in ("exact", "parallel")
+             for part, k, m in (("device", "step_ms", "step_ms"),
+                                ("device", "torch_ops_per_step",
+                                 "torch_ops_per_step"),
+                                ("sweep", "env_steps_per_s",
+                                 "env_steps_per_sec"))},
+          "native_env_steps_per_s_per_core":
+              native_row["env_steps_per_sec_per_core"],
           **{f"profiler_{k}_{m}": prof_rows[f"{k}_trace"][m]
              for k in ("bench", "qlearn")
              for m in ("host_ops_per_step", "kernel_launches_per_step",

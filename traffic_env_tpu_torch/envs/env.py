@@ -6,7 +6,7 @@ holding each action for one light period (``light_iterations`` ticks)
 with window-summed observations, then Warmup / Remi / Localize / Squish
 / History shaping.  Here the stack is a set of functions over a batched
 ``EnvState`` (every leaf batch-trailing: rewards ``(I, B)``,
-observations ``(obs_dim, B)``), on one of two cores:
+observations ``(obs_dim, B)``), on one of four cores:
 
 * ``core="window"``: one light-period window a step, the CUDA kernel
   ``csrc/window.cu`` on the card and its plain version on the CPU; the
@@ -16,12 +16,19 @@ observations ``(obs_dim, B)``), on one of two cores:
   ticks a step on the state's device, each a new state (nothing is
   written in place).  It adds ``step_autoreset_lazy_ticks``, which also
   returns the state after every tick (``--render_ticks``).
+* ``core="exact"`` / ``"parallel"``: the gather core ``envs/core.py``
+  (every car's ten parameter rows, the oracle's road-ordered hand-off
+  or the parallel one), W ticks a step in plain torch ops, nothing
+  written in place, ``step_autoreset_lazy_ticks`` too.  In validate mode
+  it gives the light times and no trip histogram, as the JAX package's
+  gather core.
 
-The two cores share one implementation of the ticks (the window's
-plain version runs ``fast_core.run_ticks``), so they give bit-equal
-trajectories.  Wrapper order is the reference's: the Repeater's reset
-action and the warm-up run inside Remi (unshaped), the history prefill
-outside it (shaped).  The ordered sums and the clamp between the two
+The window and the fast core share one implementation of the ticks
+(the window's plain version runs ``fast_core.run_ticks``), and the
+gather cores take the same device draws and lazy-reset phases, so all
+four give bit-equal trajectories.  Wrapper order is the reference's:
+the Repeater's reset action and the warm-up run inside Remi (unshaped),
+the history prefill outside it (shaped).  The ordered sums and the clamp between the two
 reciprocal multiplies keep the JAX package's rounding bit for bit.
 """
 
@@ -39,8 +46,9 @@ from ..ops.philox import reset_bits
 from ..ops.window import build_spawn_rows, make_repeater_window
 from ..spaces import GSpace
 from ..topology import GridRoad
+from . import core as gather_core
 from . import fast_core
-from .structs import SimState
+from .structs import SimState, init_state
 
 FMAX = float(np.finfo(np.float32).max)
 
@@ -106,7 +114,9 @@ class EnvFns(NamedTuple):
     action_space: GSpace
     reward_size: int
     obs_dim: int
-    sim_fns: fast_core.SimFns   # the per-tick core: tick, obs
+    # the per-tick core (tick, obs): fast_core's, or the gather core's
+    # on "exact" / "parallel"
+    sim_fns: fast_core.SimFns | gather_core.SimFns
 
 
 def make_env(topo: GridRoad, cfg: Config, n_envs: int,
@@ -114,8 +124,9 @@ def make_env(topo: GridRoad, cfg: Config, n_envs: int,
              max_spawns_per_tick: int | None = None, core: str = "window",
              device="cuda", archetypes=None, env_base: int = 0,
              n_global: int | None = None) -> EnvFns:
-    """The env of ``n_envs`` lockstep lanes on ``core`` ("window" or
-    "fast") and ``device``: envs ``env_base .. env_base + n_envs - 1`` of
+    """The env of ``n_envs`` lockstep lanes on ``core`` ("window",
+    "fast", "exact" or "parallel", see the module docstring) and
+    ``device``: envs ``env_base .. env_base + n_envs - 1`` of
     a batch of ``n_global`` (``n_envs`` by default), the shard of one
     rank of a sharded run, which draws what those envs draw in the whole
     batch (every Philox key and the init's seeds take the global env
@@ -126,9 +137,14 @@ def make_env(topo: GridRoad, cfg: Config, n_envs: int,
     row; a schedule then needs ``aidx``).  In validate mode ``init``
     attaches the trip-time histogram, every light period adds to it and
     every step returns ``{"light_times": (I, B)}`` as its info; otherwise
-    the info is None."""
-    if core not in ("window", "fast"):
-        raise ValueError(f"core={core!r}: choose 'window' or 'fast'")
+    the info is None (the gather cores attach no histogram).  The
+    default core is the window, the counterpart of the JAX trainers'
+    "auto"; the JAX package's single-env ``make_env`` defaults to its
+    gather core, ``"exact"``."""
+    if core not in ("window", "fast", "exact", "parallel"):
+        raise ValueError(f"core={core!r}: choose 'window', 'fast', 'exact' "
+                         "or 'parallel'")
+    gather = core in ("exact", "parallel")
     dev = torch.device(device)
     if max_spawns_per_tick is None:
         max_spawns_per_tick = 4 if on_device_spawns else 8
@@ -137,9 +153,14 @@ def make_env(topo: GridRoad, cfg: Config, n_envs: int,
     validate = cfg.mode == "validate"
     obs_dim = 2 * Rt + I + (Rt if cfg.occupancy_obs else 0)
     rows = fast_core.n_car_rows(archetypes)
-    sim_fns = fast_core.make_sim_fast(topo, cfg, on_device_spawns,
-                                      max_spawns_per_tick, archetypes,
-                                      env_base)
+    if gather:
+        sim_fns = gather_core.make_sim(
+            topo, cfg, on_device_spawns, max_spawns_per_tick, handoff=core,
+            archetypes=archetypes, env_base=env_base)
+    else:
+        sim_fns = fast_core.make_sim_fast(topo, cfg, on_device_spawns,
+                                          max_spawns_per_tick, archetypes,
+                                          env_base)
     spec = sim_fns.spec
     remi_tables = fast_core.remi_tables(topo, dev)
     action_space = GSpace([I], 2)
@@ -148,13 +169,14 @@ def make_env(topo: GridRoad, cfg: Config, n_envs: int,
 
     def repeater_step(sim, action, sched=None, emit_ticks=False,
                       autoreset=False):
-        """One light period on the per-tick core: hold ``action`` for W
-        ticks, sum passed, keep the last detected, the signed normalized
-        elapsed time, freeze a lane from its done tick on; ``autoreset``
-        first resets the lanes that are done (``_lazy_reset_sim``)."""
+        """One light period on the per-tick or gather core: hold
+        ``action`` for W ticks, sum passed, keep the last detected, the
+        signed normalized elapsed time, freeze a lane from its done tick
+        on; ``autoreset`` first resets the lanes that are done (the
+        window's lazy reset, ``fast_core.lazy_reset``)."""
         action = action.to(torch.int32)
         spawn_rows = spawn_ai = None
-        if not on_device_spawns:
+        if not on_device_spawns and not gather:
             spawn_rows, spawn_ai = build_spawn_rows(
                 sched, sim.global_tick, spec.W, spec.Ks, topo)
             if spec.k > 1 and spawn_ai is None:
@@ -164,12 +186,16 @@ def make_env(topo: GridRoad, cfg: Config, n_envs: int,
             sim = fast_core.lazy_reset(spec, sim)
         light = None
         if validate:
-            if sim.trip_hist is None:
+            if sim.trip_hist is None and not gather:
                 raise ValueError("validate mode needs sim.trip_hist: make "
                                  "the state with n_trip_bins > 0")
             light = fast_core.light_times(sim, action)
-        sim, acc_passed, rew, ticks = fast_core.run_ticks(
-            spec, sim, action, spawn_rows, spawn_ai, emit_ticks)
+        if gather:
+            sim, acc_passed, rew, ticks = gather_core.run_ticks(
+                sim_fns, sim, action, sched, emit_ticks)
+        else:
+            sim, acc_passed, rew, ticks = fast_core.run_ticks(
+                spec, sim, action, spawn_rows, spawn_ai, emit_ticks)
         mult = (2 * sim.phase - 1).to(torch.float32)
         obs = torch.cat([acc_passed.to(torch.float32),
                          sim.detected.to(torch.float32),
@@ -225,10 +251,14 @@ def make_env(topo: GridRoad, cfg: Config, n_envs: int,
         return res + (ticks,) if emit_ticks else res
 
     def init(generator: torch.Generator | None = None) -> EnvState:
-        sim = fast_core.init_state_compact(
-            topo, n_envs, generator, dev,
-            n_trip_bins=cfg.episode_ticks + 2 if validate else 0, rows=rows,
-            env_base=env_base, n_global=n_global)
+        if gather:
+            sim = init_state(topo, n_envs, generator, dev, env_base,
+                             n_global)
+        else:
+            sim = fast_core.init_state_compact(
+                topo, n_envs, generator, dev,
+                n_trip_bins=cfg.episode_ticks + 2 if validate else 0,
+                rows=rows, env_base=env_base, n_global=n_global)
         hist = torch.zeros((k_hist, obs_dim, n_envs), dtype=torch.float32,
                            device=dev)
         return EnvState(sim=sim, history=hist)
@@ -313,7 +343,7 @@ def make_env(topo: GridRoad, cfg: Config, n_envs: int,
         step_autoreset_lazy=step_autoreset_lazy,
         step_autoreset_lazy_noh=step_autoreset_lazy_noh,
         step_autoreset_lazy_ticks=(step_autoreset_lazy_ticks
-                                   if core == "fast" else None),
+                                   if core != "window" else None),
         observation_space=observation_space, action_space=action_space,
         reward_size=1 if cfg.squish_rewards else I, obs_dim=obs_dim,
         sim_fns=sim_fns)

@@ -31,7 +31,7 @@ from ..ops.philox import draw_bits, reset_bits, uniform24
 from ..ops.window import (build_spawn_rows, lazy_reset_phase,
                           make_window_spec)
 from ..topology import GridRoad
-from .structs import SimState
+from .structs import SimState, empty_state
 
 F32 = torch.float32
 I32 = torch.int32
@@ -52,37 +52,11 @@ def init_state_compact(topo: GridRoad, n_envs: int,
                        device="cuda", n_trip_bins: int = 0,
                        rows: int = 3, env_base: int = 0,
                        n_global: int | None = None) -> SimState:
-    """A fresh, empty batched state (pre-reset).  Each env's Philox
-    ``seed`` is drawn from ``generator`` (on the generator's device):
-    the seeds of all ``n_global`` envs (``n_envs`` by default), of which
-    the batch keeps ``env_base .. env_base + n_envs - 1``, so a rank of a
-    sharded run holds the seeds its envs hold in one batch.  The reset
-    counter starts at 0.
-    ``n_trip_bins > 0`` attaches the validate-mode trip-time histogram,
-    i32 (n_trip_bins, n_envs).  ``rows`` is ``n_car_rows(archetypes)``:
-    4 adds the archetype-index row."""
-    dev = torch.device(device)
-    R, Rt, I = topo.roads, topo.train_roads, topo.intersections
-    B = int(n_envs)
-    gen_dev = generator.device if generator is not None else "cpu"
-    seed = torch.randint(-2 ** 31, 2 ** 31, (n_global or B,),
-                         dtype=torch.int32, generator=generator,
-                         device=gen_dev)[env_base:env_base + B]
-    seed = seed.to(dev).clone()
-    cars = torch.zeros((R, rows, RING, B), dtype=torch.float32, device=dev)
-    cars[:, CX, 0] = float("inf")
-    zi = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
-    return SimState(
-        cars=cars, leading=zi(R, B), lastcar=zi(R, B),
-        phase=zi(I, B), elapsed=zi(I, B),
-        passed=zi(Rt, B), detected=zi(Rt, B), waiting=zi(Rt, B),
-        passed_dst=torch.zeros((I, B), dtype=torch.bool, device=dev),
-        rewards=torch.zeros((I, B), dtype=torch.float32, device=dev),
-        steps=zi(B), global_tick=zi(B),
-        spawn_gap=torch.full((B,), -1, dtype=torch.int32, device=dev),
-        spawn_backlog=zi(B), seed=seed, resets=zi(B),
-        done=torch.zeros((B,), dtype=torch.bool, device=dev),
-        trip_hist=zi(n_trip_bins, B) if n_trip_bins else None)
+    """A fresh, empty batched state (pre-reset) of the compact layout:
+    ``rows`` is ``n_car_rows(archetypes)``, 4 adds the archetype-index
+    row; ``structs.empty_state`` has the rest."""
+    return empty_state(topo, n_envs, rows, generator, device, n_trip_bins,
+                       env_base, n_global)
 
 
 def reset(sim: SimState, phase=None, env_base: int = 0) -> SimState:
@@ -660,6 +634,16 @@ def run_ticks(spec, sim: SimState, action: torch.Tensor, spawn_rows=None,
     the summed passed counts and rewards of the live ticks, and with
     ``emit_ticks`` the state after each tick stacked on a leading axis
     (else None)."""
+    return run_period(spec, sim, lambda w, s: tick(
+        spec, s, action, None if spawn_rows is None else spawn_rows[w],
+        None if spawn_ai is None else spawn_ai[w]), emit_ticks)
+
+
+def run_period(spec, sim: SimState, tick_fn: Callable,
+               emit_ticks: bool = False):
+    """``spec.W`` calls ``tick_fn(w, sim) -> sim`` with the freeze and
+    the window sums of :func:`run_ticks` (which is this on the per-tick
+    core; ``envs/core.py:run_ticks`` on the gather core)."""
     Rt, I = spec.Rt, spec.I
     B, dev = sim.done.shape[-1], sim.done.device
     acc_passed = torch.zeros((Rt, B), dtype=I32, device=dev)
@@ -667,9 +651,7 @@ def run_ticks(spec, sim: SimState, action: torch.Tensor, spawn_rows=None,
     ticks = []
     for w in range(spec.W):
         live = ~sim.done
-        nxt = tick(spec, sim, action,
-                   None if spawn_rows is None else spawn_rows[w],
-                   None if spawn_ai is None else spawn_ai[w])
+        nxt = tick_fn(w, sim)
         sim = select(live, nxt, sim)
         acc_passed = acc_passed + torch.where(live, nxt.passed, 0)
         rew_sum = rew_sum + torch.where(live, nxt.rewards, 0.0)

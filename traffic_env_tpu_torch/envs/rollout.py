@@ -9,7 +9,9 @@ autoreset folded into the window (the counterpart of
 ``make_pallas_batched_env``); ``core="fast"`` runs it as W calls of the
 per-tick core ``envs/fast_core.py:tick`` in plain torch ops on the same
 device (the JAX package's fast core), which also gives the state after
-each tick.  Reward shaping and history stacking are plain torch ops on
+each tick; ``core="exact"`` and ``"parallel"`` run W ticks of the gather
+core ``envs/core.py`` (the JAX package's ``make_sim``, every car's ten
+parameter rows) with the road-ordered or the parallel hand-off.  Reward shaping and history stacking are plain torch ops on
 the small ``(I, B)`` / ``(obs_dim, B)`` outputs (``envs/env.py``).
 
 A CUDA env never falls back to the CPU: it raises when there is no card
@@ -76,7 +78,8 @@ def make_batched_env(topo: GridRoad, cfg: Config, n_envs: int,
                      device="cuda", archetypes=None,
                      core: str = "window", env_base: int = 0,
                      n_global: int | None = None) -> BatchedEnv:
-    """The batched env of ``envs/env.py:make_env`` on ``core``: envs
+    """The batched env of ``envs/env.py:make_env`` on ``core``
+    ("window", "fast", "exact" or "parallel"): envs
     ``env_base .. env_base + n_envs - 1`` of ``n_global`` (``n_envs`` by
     default).
     ``max_spawns_per_tick`` defaults to 4 with device spawns and 8 with
@@ -91,7 +94,8 @@ def make_batched_env(topo: GridRoad, cfg: Config, n_envs: int,
     new leaves: a caller that needs the state from before a step (a
     learner that keeps the previous state, a validation that must not
     advance the training env) clones it first.  ``step_autoreset``
-    clones for itself.  The per-tick core writes nothing in place."""
+    clones for itself.  The per-tick and gather cores write nothing in
+    place."""
     dev = _device(device, core)
     env = make_env(topo, cfg, n_envs, on_device_spawns, max_spawns_per_tick,
                    core, dev, archetypes, env_base, n_global)

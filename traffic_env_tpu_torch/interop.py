@@ -6,8 +6,11 @@ holds a Philox ``seed`` (B,) and a reset counter ``resets`` (B,);
 ``sim_from_arrays`` takes ``seed`` when given and otherwise the first
 key word's bits, and ``resets`` when given and otherwise 0.
 ``trip_hist`` (validate telemetry) is carried when present, and
-``cars`` with all its rows (the archetype-index row 3 of a k > 1 state
-included).
+``cars`` with all its rows: the compact state's x/v/w (and the
+archetype-index row 3 of a k > 1 state), or the gather core's ten
+parameter rows (``structs.init_state``, the JAX package's
+``init_state``), so one JAX ``init_state``/``reset`` batch feeds both
+packages.
 ``schedule_from_arrays`` carries a schedule, its ``aidx`` included.
 ``qnet_state_dict_from_flax`` and ``convqnet_state_dict_from_flax`` turn
 a flax ``QNet`` or ``ConvQNet`` param tree into the port's state_dict,
@@ -34,7 +37,9 @@ _FIELDS = ("cars", "leading", "lastcar", "phase", "elapsed", "passed",
 
 
 def sim_from_arrays(arrays: dict, device="cuda") -> SimState:
-    """Batched SimState leaves (numpy, trailing batch axis) -> SimState."""
+    """Batched SimState leaves (numpy, trailing batch axis) -> SimState:
+    the fields of either core's state, with ``seed`` or the JAX
+    package's raw threefry ``key`` (2, B) (see the module docstring)."""
     dev = torch.device(device)
     out = {}
     for k in _FIELDS:

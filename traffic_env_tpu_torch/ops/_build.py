@@ -1,10 +1,11 @@
-"""Build the CUDA sources of ``csrc/`` with nvcc into shared libraries
-with a plain C interface, loaded with ctypes.
+"""Build the sources of ``csrc/`` into shared libraries with a plain C
+interface, loaded with ctypes: the CUDA kernels (``.cu``) with nvcc,
+the native CPU simulator (``.cpp``) with g++ (``build_host``).
 
 Libraries go to ``traffic_env_tpu_torch/_build/`` under a name that
 hashes the source and the flags, so a changed source rebuilds and an
 unchanged one loads at once.  Nothing is built at import time: the first
-launch of a kernel builds it.
+launch of a kernel, or the first native simulator, builds it.
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# every float32 op IEEE and un-fused, as the oracle's
+HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-fno-fast-math",
+              "-ffp-contract=off")
 
 
 def nvcc_path() -> str:
@@ -38,13 +42,30 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
-def _target(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
+def _target(src: pathlib.Path, flags, headers=()) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes())
-    for hdr in sorted(CSRC.glob("*.cuh")):
+    for hdr in headers:
         h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def _compile(cmd_head: list, src: pathlib.Path, target: pathlib.Path,
+             tool: str) -> dict:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if target.exists():
+        return {"path": str(target), "seconds": 0.0, "log": ""}
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([*cmd_head, "-o", str(tmp), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tool} failed for {src.name} "
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, target)
+    return {"path": str(target), "seconds": seconds, "log": proc.stdout}
 
 
 def build(name: str) -> dict:
@@ -52,21 +73,23 @@ def build(name: str) -> dict:
     already.  Returns {"path", "seconds", "log"}; ``log`` holds nvcc's
     output (ptxas register and spill counts) when this call built the
     library and is empty when it was built already."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    target = _target(name)
-    if target.exists():
-        return {"path": str(target), "seconds": 0.0, "log": ""}
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, target)
-    return {"path": str(target), "seconds": seconds, "log": proc.stdout}
+    src = CSRC / f"{name}.cu"
+    return _compile([nvcc_path(), *NVCC_FLAGS], src,
+                    _target(src, NVCC_FLAGS, sorted(CSRC.glob("*.cuh"))),
+                    "nvcc")
+
+
+def build_host(name: str) -> dict:
+    """Build the host C++ source ``csrc/<name>.cpp`` with one g++ call
+    (``HOST_FLAGS``) unless it is built already; returns what
+    :func:`build` returns.  Raises when g++ is missing or fails."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the native simulator is built "
+                           "with g++")
+    src = CSRC / f"{name}.cpp"
+    return _compile([gxx, *HOST_FLAGS], src, _target(src, HOST_FLAGS),
+                    "g++")
 
 
 def _kernel_name(mangled: str) -> str:

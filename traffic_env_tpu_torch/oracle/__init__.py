@@ -1,6 +1,10 @@
-"""The NumPy oracle's pieces that the port runs (counterpart of
-``traffic_env_tpu/oracle/``): so far its arrival spawners."""
+"""The NumPy oracle (counterpart of ``traffic_env_tpu/oracle/``): the
+reference-semantics simulator ``OracleSim``, its wrapper stack
+``OracleEnv`` and the arrival spawners."""
 
+from .sim import OracleSim, idm_update, ring_next
 from .spawners import PoissonSpawner, RegularSpawner
+from .stack import OracleEnv
 
-__all__ = ["PoissonSpawner", "RegularSpawner"]
+__all__ = ["OracleEnv", "OracleSim", "PoissonSpawner", "RegularSpawner",
+           "idm_update", "ring_next"]

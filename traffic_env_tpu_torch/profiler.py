@@ -6,13 +6,16 @@ a ``torch.profiler`` trace to open in Perfetto or ``chrome://tracing``::
     python -m traffic_env_tpu_torch.profiler                  # 50 episodes
     python -m traffic_env_tpu_torch.profiler --trace=DIR      # also a trace
     python -m traffic_env_tpu_torch.profiler --core=fast --num_envs=1024
+    python -m traffic_env_tpu_torch.profiler --core=exact --num_envs=4096
     python -m traffic_env_tpu_torch.profiler --trainer=qlearn # training
 
 The sweep times ``--episodes`` random-action episodes of
 ``episode_len`` agent steps on the 3x3 bench config, after one warm-up
 episode, on ``--core``: ``window`` (one window kernel launch a step on
-the card, its plain version on the CPU; ``auto`` means it) or ``fast``
-(the per-tick core, plain torch ops).  ``--trainer`` times whole
+the card, its plain version on the CPU; ``auto`` means it), ``fast``
+(the per-tick core, plain torch ops), or ``exact`` / ``parallel`` (the
+gather core of ``envs/core.py`` with the road-ordered or the parallel
+hand-off, plain torch ops).  ``--trainer`` times whole
 training episodes (act, env, replay, update) of a learner with
 ``make_state``: qlearn, qrnn, a3c or polgrad_rnn.  Each run ends with one
 ``torch.cuda.synchronize()`` and prints one JSON line.  ``--trace=DIR``
@@ -41,7 +44,8 @@ from .topology import GridRoad
 
 # the learners with make_state / run_episode
 TRAINERS = ("qlearn", "qrnn", "a3c", "polgrad_rnn")
-CORES = {"auto": "window", "window": "window", "fast": "fast"}
+CORES = {"auto": "window", "window": "window", "fast": "fast",
+         "exact": "exact", "parallel": "parallel"}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -51,7 +55,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--num_envs", type=int, default=1024)
     p.add_argument("--episodes", type=int, default=50)
     p.add_argument("--core", type=str, default="auto",
-                   help="auto | window | fast (auto means window)")
+                   help="auto | window | fast | exact | parallel (auto "
+                        "means window)")
     p.add_argument("--trace", type=str, default="",
                    help="directory for a torch.profiler trace")
     p.add_argument("--platform", type=str, default="",

@@ -175,7 +175,19 @@ Phases, one JSON line each:
    gradient on the same rollout, and the step Adam's on it within 1% of
    the learning rate); launches
    == windows summed over the ranks; the agent-step ms of each beside
-   the unsharded one, for information.
+   the unsharded one, for information.  mesh_mp: the dp x mp mesh at
+   2,2 (four gloo ranks on cuda:0; on four cards or more one NCCL rank
+   a card, first with the parameters replicated over mp, bit-equal to
+   the unsharded run), a qlearn episode at the JAX widths with main,
+   chooser and target split over mp (``parallel.shard_params(net,
+   "mp")``): statistics within rtol 1e-5, the whole parameters within
+   25% of the learning rate of the unsharded run's, the split QNet's
+   forward within 1e-6 of max |Q| and its gradients within 1e-5 of the
+   largest of the unsplit net's on the same parameters and TD batch,
+   launches == windows over all ranks; the split step's ms beside the
+   dp-only and the unsharded steps, and the mp all-gathers and
+   all-reduces a step with their bytes.  On two cards or more also the two-process CLI
+   (``--num_processes=2``, ``CUDA_VISIBLE_DEVICES`` set per process).
 10. k2: ``random_rollout`` through ``make_batched_env(archetypes=TWO)``
    at 4096 envs, device spawns, 120 timed agent steps: env-steps/s, the
    truck share of the cars on the roads, launches == windows.
@@ -248,10 +260,12 @@ from traffic_env_tpu_torch.envs.rollout import (bind_schedule,
 from traffic_env_tpu_torch.envs.spawn import ScheduleStream
 from traffic_env_tpu_torch.envs.structs import SpawnSchedule
 from traffic_env_tpu_torch.interop import load_teacher, sim_to_arrays
+from traffic_env_tpu_torch.models.nets import QNet
 from traffic_env_tpu_torch.ops import _build, window_cuda
 from traffic_env_tpu_torch.ops.window import (make_window_spec, sim_to_dict,
                                               window_reference)
 from traffic_env_tpu_torch.ops.window_cuda import block_geometry, spawn_mode
+from traffic_env_tpu_torch.parallel.mp import ColumnParallelLinear
 from traffic_env_tpu_torch.topology import GridRoad
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the
@@ -3340,6 +3354,268 @@ def mesh_phase(card):
             or not all(math.isfinite(x) for x in got["qlearn"][0]):
         raise SmokeFailure("mesh: a sharded run differs from the unsharded "
                            "one")
+    return row, ref_q
+
+
+# -- mesh_mp: the dp x mp mesh and the mp split -------------------------------
+
+MP_MESH = "2,2"
+# the split run's whole parameters after an episode (~100 TD steps)
+# against the unsharded run's, as a share of the learning rate: the
+# split layers' matrix products round otherwise, and Adam divides each
+# gradient by its own running size, so an element whose gradient is
+# near zero moves by a good share of lr on rounding alone (4.9% of lr
+# after an episode at 4096 envs on an H100); a gradient off in sign
+# moves it by 2 lr a step
+MP_PARAM_TOL_OVER_LR = 0.25
+MP_STATS_RTOL = 1e-5
+# the split QNet on the same parameters and inputs as the unsplit one:
+# forward within 1e-6 of max |Q|, gradients within 1e-5 of the largest
+MP_FORWARD_TOL = 1e-6
+MP_GRAD_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Within it, every ``torch.distributed`` all_reduce, all_gather and
+    broadcast is recorded in the list it yields as (op, the group's
+    ranks, bytes of this rank's tensor); the program is not changed."""
+    tdist = torch.distributed
+    log, saved = [], {}
+
+    def wrap(op, fn):
+        def call(*args, **kw):
+            t = args[1] if op == "all_gather" else args[0]
+            group = kw.get("group")
+            members = tuple(range(tdist.get_world_size())) if group is None \
+                else tuple(tdist.get_process_group_ranks(group))
+            log.append((op, members, t.numel() * t.element_size()))
+            return fn(*args, **kw)
+        return call
+
+    for op in ("all_reduce", "all_gather", "broadcast"):
+        saved[op] = getattr(tdist, op)
+        setattr(tdist, op, wrap(op, saved[op]))
+    try:
+        yield log
+    finally:
+        for op, fn in saved.items():
+            setattr(tdist, op, fn)
+
+
+def mesh_mp_ranks(split):
+    """Every rank of a dp x mp mesh: a qlearn episode from make_state at
+    the JAX widths (4096 global envs), main, chooser and target split on
+    mp when ``split``; then a second episode, timed, with its collectives
+    counted.  Rank 0 returns (stats, the whole parameters of main,
+    launches summed over all ranks, agent-step ms, collectives a step by
+    op and axis: count and bytes, and when ``split`` the layer check:
+    a TD batch's states, main's Q on them and the gradients of a fixed
+    weighting of Q, gathered over mp)."""
+    par = parallel
+    variants = ("window", "window_telemetry")
+    cfg = qlearn_config()
+    ctx, ts = qlearn.make_state(cfg)
+    if split:
+        for net in (ts.main, ts.chooser, ts.target):
+            par.shard_params(net, "mp")
+    torch.cuda.synchronize()
+    window_cuda.launches.clear()
+    stats = ctx.fns.run_episode(ts)
+    launches = dict(window_cuda.launches)
+    params = {k: v.to("cpu", copy=True)
+              for k, v in par.full_state_dict(ts.main).items()}
+    t = torch.tensor([launches.get(v, 0) for v in variants],
+                     device=par.device())
+    t = par.mp_all_reduce([par.all_sum(t)])[0].tolist()
+    launches = {v: int(c) for v, c in zip(variants, t) if c}
+    check = None
+    if split:
+        states = ts.replay.sample(ts.generator, cfg.batch_size)[0]
+        # the last TD step left its gradients in place
+        ts.opt.zero_grad(set_to_none=True)
+        q = ts.main(states)
+        torch.sum(q * torch.linspace(-1, 1, q.numel(), device=q.device)
+                  .reshape(q.shape)).backward()
+        split_ids = {id(p) for m in ts.main.modules()
+                     if isinstance(m, ColumnParallelLinear)
+                     for p in m.parameters(recurse=False)}
+        grads = {k: par.mp_all_gather(p.grad, 0) if id(p) in split_ids
+                 else p.grad for k, p in ts.main.named_parameters()}
+        check = (states.cpu(), q.detach().cpu(),
+                 {k: g.cpu() for k, g in grads.items()})
+        ts.opt.zero_grad(set_to_none=True)
+    with counted_collectives() as log:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.fns.run_episode(ts)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / cfg.episode_len * 1e3
+    mp_group = tuple(par.rank() - par.mp_rank() + m
+                     for m in range(par.mp_size()))
+    per_step = {}
+    for op, group, nbytes in log:
+        axis = "mp" if group == mp_group else "dp"
+        key = f"{axis}_{op}"
+        n, b = per_step.get(key, (0, 0))
+        per_step[key] = (n + 1, b + nbytes)
+    per_step = {k: {"count": n / cfg.episode_len,
+                    "bytes": b / cfg.episode_len}
+                for k, (n, b) in per_step.items()}
+    return stats, params, launches, ms, per_step, check
+
+
+def mp_layer_check(params, check):
+    """The split QNet's forward and gradients (``mesh_mp_ranks``'s
+    check) against an unsplit QNet on the same whole parameters and
+    states in this process: (forward error over max |Q|, gradient error
+    over the largest gradient element)."""
+    states, q_split, g_split = check
+    w = params["dense.0.weight"]
+    net = QNet(w.shape[1], params["dense.3.weight"].shape[0] // 2)
+    net.load_state_dict(params)
+    net = net.to(DEVICE)
+    q = net(states.to(DEVICE))
+    torch.sum(q * torch.linspace(-1, 1, q.numel(), device=q.device)
+              .reshape(q.shape)).backward()
+    q = q.detach().cpu()
+    grads = {k: p.grad.cpu() for k, p in net.named_parameters()}
+    top = max(float(g.abs().max()) for g in grads.values())
+    return (float((q_split - q).abs().max()) / float(q.abs().max()),
+            max(float((g_split[k] - g).abs().max())
+                for k, g in grads.items()) / top)
+
+
+def two_process_cli(card):
+    """``--num_processes=2`` on one host with two cards: two processes
+    of the qlearn CLI, each with ``CUDA_VISIBLE_DEVICES`` set to its own
+    card (the launcher puts a process's first local rank on ``cuda:0``),
+    NCCL, 2 training episodes at 4096 global envs; both finish, process
+    0's logdir has the checkpoint and finite statistics."""
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_mp_cli_")
+    port = parallel.dist.free_port()
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    argv = ["--trainer=qlearn", f"--num_envs={N_ENVS}", "--mesh_shape=2",
+            "--num_processes=2", f"--coordinator=localhost:{port}",
+            "--total_episodes=2", "--summary_rate=1", "--validate_rate=100",
+            "--save_rate=100"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "traffic_env_tpu_torch"] + argv
+        + [f"--process_id={i}", f"--logdir={logdir}/p{i}"],
+        env=dict(env, CUDA_VISIBLE_DEVICES=str(i)), cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    try:
+        rewards = [m["value"] for m in read_metrics(f"{logdir}/p0")
+                   if m["name"] == "mean_reward"] \
+            if procs[0].returncode == 0 else []
+        row = {"cli": "CUDA_VISIBLE_DEVICES=i python -m "
+               "traffic_env_tpu_torch " + " ".join(argv)
+               + " --process_id=i",
+               "seconds_with_startup": time.perf_counter() - t0,
+               "exit_codes": [p.returncode for p in procs],
+               "checkpoint": os.path.isfile(f"{logdir}/p0/model.ckpt"),
+               "process_1_logdir_made": os.path.exists(f"{logdir}/p1"),
+               "mean_rewards": rewards}
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    if any(p.returncode for p in procs) or not row["checkpoint"] \
+            or row["process_1_logdir_made"] or len(rewards) != 2 \
+            or not all(math.isfinite(x) for x in rewards):
+        raise SmokeFailure("mesh_mp: the two-process CLI failed:\n"
+                           + "\n".join(o[-2000:] for o in outs))
+    return row
+
+
+def mesh_mp_phase(card, ref_q, dp_ms):
+    """(c) The dp x mp mesh (2 x 2, 4 ranks, 2048 of 4096 envs on each
+    dp index): on one card four gloo ranks on cuda:0; on four cards or
+    more one NCCL rank a card, first with the parameters replicated over
+    mp (bit-equal to the unsharded run, as the JAX CLI places them),
+    then split.  The split run (``parallel.shard_params(net, "mp")`` on
+    main, chooser and target) against the unsharded qlearn episode
+    ``ref_q``: the statistics within rtol ``MP_STATS_RTOL`` and finite,
+    the whole parameters within ``MP_PARAM_TOL_OVER_LR`` of the learning
+    rate, launches == windows over all ranks; and the split QNet's
+    forward and gradients on a TD batch against the unsplit QNet on the
+    same parameters (``mp_layer_check``, within ``MP_FORWARD_TOL`` and
+    ``MP_GRAD_TOL``).  Its agent-step ms beside
+    the unsharded one and the dp-only mesh's ``dp_ms``, and the
+    collectives of a step by axis, for information.  On two cards or
+    more also the two-process CLI (``two_process_cli``)."""
+    cards = torch.cuda.device_count()
+    nccl = cards >= 4
+    backend = "nccl" if nccl else "gloo"
+    n_ranks = 4
+    dp = parallel.mesh_dims(MP_MESH)[0]
+    cfg = qlearn_config()
+    launch = lambda split: parallel.launch(
+        mesh_mp_ranks, (split,), world_size=n_ranks, mesh_shape=MP_MESH,
+        backend=backend, device_type="cuda", share_card=not nccl,
+        timeout_s=600)
+    windows = {"window": n_ranks * cfg.episode_len}
+    row = {"phase": "mesh_mp", "card": card, "backend": backend,
+           "mesh": MP_MESH, "ranks": n_ranks,
+           "device": "cuda:r (rank r)" if nccl else "cuda:0 (every rank)",
+           "global_envs": N_ENVS, "envs_a_rank": N_ENVS // dp,
+           "windows_run": windows}
+    ok = True
+    if nccl:
+        t0 = time.perf_counter()
+        rep = launch(False)
+        equal, err = params_diff(ref_q[1], {k: v.to(ref_q[1][k].device)
+                                            for k, v in rep[1].items()})
+        row["replicated"] = {
+            "seconds_with_startup": time.perf_counter() - t0,
+            "params_bit_equal": equal, "params_max_abs_err": err,
+            "stats": rep[0], "launches": rep[2], "agent_step_ms": rep[3],
+            "collectives_a_step": rep[4]}
+        ok = ok and equal and rep[2] == windows and bool(np.allclose(
+            rep[0], ref_q[0], rtol=MP_STATS_RTOL, atol=1e-7))
+    t0 = time.perf_counter()
+    got = launch(True)
+    seconds = time.perf_counter() - t0
+    _, err = params_diff(ref_q[1], {k: v.to(ref_q[1][k].device)
+                                    for k, v in got[1].items()})
+    PATH_LAUNCHES["mesh_mp_qlearn"] = got[2]
+    stats_close = bool(np.allclose(got[0], ref_q[0], rtol=MP_STATS_RTOL,
+                                   atol=1e-7))
+    fwd_err, grad_err = mp_layer_check(got[1], got[5])
+    row.update({
+        "split_forward_err_over_max_q": fwd_err,
+        "split_forward_tol": MP_FORWARD_TOL,
+        "split_grad_err_over_largest": grad_err,
+        "split_grad_tol": MP_GRAD_TOL,
+        "split_seconds_with_startup": seconds,
+        "split_params_max_abs_err": err,
+        "split_params_max_err_over_lr": err / cfg.learning_rate,
+        "split_params_tol_over_lr": MP_PARAM_TOL_OVER_LR,
+        "split_stats": [ref_q[0], got[0]], "split_stats_close": stats_close,
+        "split_stats_rtol": MP_STATS_RTOL,
+        "launches": got[2],
+        "agent_step_ms": {"unsharded": ref_q[3], "dp_only": dp_ms,
+                          "mp_split": got[3]},
+        "collectives_a_step": got[4]})
+    if cards >= 2:
+        row["two_process_cli"] = two_process_cli(card)
+    emit(row)
+    if got[2] != windows:
+        raise SmokeFailure(f"mesh_mp: launches {got[2]}, windows {windows}")
+    if not ok or not stats_close or fwd_err > MP_FORWARD_TOL \
+            or grad_err > MP_GRAD_TOL \
+            or err > MP_PARAM_TOL_OVER_LR * cfg.learning_rate \
+            or not all(math.isfinite(x) for x in got[0]):
+        raise SmokeFailure("mesh_mp: the dp x mp run differs from the "
+                           "unsharded one")
     return row
 
 
@@ -3408,7 +3684,9 @@ def main():
     if args.mesh_only or args.sim_only:
         if args.mesh_only:
             mesh_world1_phase(card)
-            mesh_phase(card)
+            mesh_row, ref_q = mesh_phase(card)
+            mesh_mp_phase(card, ref_q,
+                          mesh_row["agent_step_ms"]["qlearn"]["sharded"])
         if args.sim_only:
             gather_core_phase(card)
             native_phase(card)
@@ -3435,7 +3713,9 @@ def main():
     gather_rows = gather_core_phase(card)
     native_row = native_phase(card)
     mesh1_row = mesh_world1_phase(card)
-    mesh_row = mesh_phase(card)
+    mesh_row, ref_q = mesh_phase(card)
+    mp_row = mesh_mp_phase(card, ref_q,
+                           mesh_row["agent_step_ms"]["qlearn"]["sharded"])
     exact_rows = exact_qlearn_phase(card, args.exact_envs)
     conv_rows = conv_qlearn_phase(card)
     a3c_phase(card, "a3c", {})
@@ -3521,6 +3801,9 @@ def main():
           **{f"mesh_{name}_{k}_ms": v
              for name, r in mesh_row["agent_step_ms"].items()
              for k, v in r.items()},
+          "mesh_mp_seconds_with_startup": mp_row["split_seconds_with_startup"],
+          **{f"mesh_mp_qlearn_{k}_ms": v
+             for k, v in mp_row["agent_step_ms"].items()},
           "ms_over_core": {r["variant"]: r["ms"] / core["ms"]
                            for r in (tel, decel, regular, k2)}})
 

@@ -1,5 +1,7 @@
 """Card-only tests: each CUDA kernel against its plain PyTorch version
-on the card, bit for bit.  They skip without a card.  This file imports
+on the card, bit for bit; the nets on the card against the CPU; the dp x
+mp mesh and the two-process CLI on the cards.  They skip without a card
+(or without enough cards).  This file imports
 no JAX, so it runs on a machine with the card and without JAX:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
@@ -554,3 +556,96 @@ def test_gather_core_on_card_matches_cpu(handoff, spawns):
                     (k, t)
         dones += int(sims["cpu"].done.sum())
     assert dones > 0
+
+
+# -- the dp x mp mesh on the cards --------------------------------------------
+
+# a qlearn episode at the JAX widths (3x3, QNet 200, history 20, batch
+# 30) on 256 envs, 40 agent steps: the ring fills after 22, so it trains
+MP_QLEARN = dict(trainer="qlearn", num_envs=256, episode_secs=200)
+
+
+def _mp_episode(cfg, split):
+    """One qlearn episode on this rank's card, main, chooser and target
+    split on mp when ``split``: (stats, the whole parameters of main on
+    the CPU, TD steps)."""
+    from traffic_env_tpu_torch import parallel
+    from traffic_env_tpu_torch.algorithms import qlearn
+    ctx, ts = qlearn.make_state(cfg)
+    if split:
+        for net in (ts.main, ts.chooser, ts.target):
+            parallel.shard_params(net, "mp")
+    stats = ctx.fns.run_episode(ts)
+    return (stats, {k: v.cpu() for k, v in
+                    parallel.full_state_dict(ts.main).items()},
+            ts.train_steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_mp_split_qlearn_on_cards_matches_unsharded(backend):
+    """On the card(s): a 2 x 2 mesh (four gloo ranks sharing cuda:0, or
+    one NCCL rank a card on four cards) with main, chooser and target
+    split on mp, against one process on the card: the statistics finite
+    and within rtol 1e-5, the whole parameters within 25% of the
+    learning rate (the split layers' products round otherwise, and Adam
+    scales a near-zero gradient's rounding up to a share of lr; a
+    gradient off in sign moves an element by 2 lr a step), as
+    chip_smoke.py's ``mesh_mp`` phase holds them."""
+    import numpy as np
+
+    from traffic_env_tpu_torch import parallel
+    need = 1 if backend == "gloo" else 4
+    if not torch.cuda.is_available() or torch.cuda.device_count() < need:
+        pytest.skip(f"needs {need} CUDA cards")
+    cfg = Config(**MP_QLEARN).derive()
+    s1, p1, n1 = _mp_episode(cfg, False)
+    s4, p4, n4 = parallel.launch(
+        _mp_episode, (cfg, True), world_size=4, mesh_shape="2,2",
+        backend=backend, device_type="cuda", share_card=backend == "gloo",
+        timeout_s=300)
+    assert n1 == n4 > 0
+    assert all(np.isfinite(s4))
+    np.testing.assert_allclose(s4, s1, rtol=1e-5, atol=1e-7)
+    for k in p1:
+        np.testing.assert_allclose(p4[k].numpy(), p1[k].numpy(), rtol=0,
+                                   atol=0.25 * cfg.learning_rate, err_msg=k)
+
+
+@pytest.mark.gpu
+def test_two_process_cli_with_a_card_each(tmp_path):
+    """On two cards or more: the qlearn CLI as two processes of one rank
+    each (``--num_processes=2``, NCCL), each process shown only its own
+    card by ``CUDA_VISIBLE_DEVICES`` (the launcher puts a process's
+    first local rank on ``cuda:0``): both finish, process 0 writes the
+    checkpoint and process 1 no logdir."""
+    import os
+    import subprocess
+    import sys
+
+    from traffic_env_tpu_torch import parallel
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = parallel.dist.free_port()
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "traffic_env_tpu_torch", "--trainer=qlearn",
+         f"--coordinator=localhost:{port}", "--num_processes=2",
+         f"--process_id={i}", "--mesh_shape=2", "--num_envs=512",
+         "--episode_secs=100", "--total_episodes=2", "--validate_rate=100",
+         "--save_rate=100", f"--logdir={tmp_path}/p{i}"],
+        env=dict(env, CUDA_VISIBLE_DEVICES=str(i)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    assert (tmp_path / "p0" / "model.ckpt").is_file()
+    assert not (tmp_path / "p1").exists()

@@ -72,7 +72,8 @@ class A3CTS:
 
     def state_dict(self) -> dict:
         """The global state (the env, obs and carry of every rank)."""
-        return {"net": self.net.state_dict(), "opt": self.opt.state_dict(),
+        return {"net": parallel.full_state_dict(self.net),
+                "opt": parallel.full_optimizer_state(self.opt, self.net),
                 **env_state_dict(self.env),
                 "obs": parallel.all_gather(self.obs),
                 "gru": parallel.all_gather(self.gru, 0), "step": self.step,
@@ -84,7 +85,7 @@ class A3CTS:
         its device."""
         dev = self.obs.device
         self.net.load_state_dict(sd["net"])
-        self.opt.load_state_dict(sd["opt"])
+        parallel.load_optimizer_state(self.opt, sd["opt"], self.net)
         self.env = load_env_state(self.env, sd, dev)
         self.obs = parallel.shard(sd["obs"]).to(dev)
         self.gru = parallel.shard(sd["gru"], 0).to(dev)
@@ -258,7 +259,7 @@ def make_fns(cfg: Config, benv, topo) -> A3CFns:
         loss.backward()
         grads = all_reduce_grads([p.grad for p in ts.net.parameters()])
         # optax.clip_by_global_norm: scale by max / norm when norm >= max
-        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        gnorm = parallel.global_norm(ts.net, grads)
         keep = gnorm < CLIP_NORM
         for g in grads:
             g.copy_(torch.where(keep, g, (g / gnorm) * CLIP_NORM))

@@ -29,7 +29,11 @@ same replay sample over the global env axis, which the all-reduce of
 ``FrameReplay.sample_at`` makes whole on every rank: every rank then
 runs the same ``td_update`` on the same batch, and the parameters stay
 those of the unsharded run with no gradient all-reduce.  The episode
-statistics are reduced over the ranks.
+statistics are reduced over the ranks.  With the nets split over mp
+(``parallel.shard_params(net, "mp")`` on main, chooser and target, an
+API call as in the JAX package, no flag) each layer gathers its outputs
+over mp, the gradient norm is the whole parameters' and the checkpoint
+holds the whole parameters and Adam moments.
 """
 
 from __future__ import annotations
@@ -74,10 +78,10 @@ class QLearnTS:
 
     def state_dict(self) -> dict:
         """The global state (the env, obs and replay of every rank)."""
-        return {"main": self.main.state_dict(),
-                "chooser": self.chooser.state_dict(),
-                "target": self.target.state_dict(),
-                "opt": self.opt.state_dict(),
+        full = parallel.full_state_dict
+        return {"main": full(self.main), "chooser": full(self.chooser),
+                "target": full(self.target),
+                "opt": parallel.full_optimizer_state(self.opt, self.main),
                 "replay": self.replay.state_dict(),
                 **env_state_dict(self.env),
                 "obs": parallel.all_gather(self.obs),
@@ -91,7 +95,7 @@ class QLearnTS:
         dev = self.obs.device
         for name in ("main", "chooser", "target"):
             getattr(self, name).load_state_dict(sd[name])
-        self.opt.load_state_dict(sd["opt"])
+        parallel.load_optimizer_state(self.opt, sd["opt"], self.main)
         self.replay.load_state_dict(sd["replay"])
         self.env = load_env_state(self.env, sd, dev)
         self.obs = parallel.shard(sd["obs"]).to(dev)
@@ -156,7 +160,7 @@ def make_fns(cfg: Config, benv) -> QLearnFns:
         loss.backward()
         grads = [p.grad for p in ts.main.parameters()]
         # optax.clip_by_global_norm: scale by max / norm when norm >= max
-        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        gnorm = parallel.global_norm(ts.main, grads)
         keep = gnorm < CLIP_NORM
         for g in grads:
             g.copy_(torch.where(keep, g, (g / gnorm) * CLIP_NORM))

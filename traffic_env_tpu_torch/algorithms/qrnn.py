@@ -73,9 +73,9 @@ class QRnnTS:
     def state_dict(self) -> dict:
         """The global state (the env of every rank; the replay is whole
         on every rank)."""
-        return {"main": self.main.state_dict(),
-                "target": self.target.state_dict(),
-                "opt": self.opt.state_dict(),
+        return {"main": parallel.full_state_dict(self.main),
+                "target": parallel.full_state_dict(self.target),
+                "opt": parallel.full_optimizer_state(self.opt, self.main),
                 "replay": self.replay.state_dict(),
                 **env_state_dict(self.env), "step": self.step,
                 "train_steps": self.train_steps, "episode": self.episode,
@@ -87,7 +87,7 @@ class QRnnTS:
         dev = next(self.main.parameters()).device
         self.main.load_state_dict(sd["main"])
         self.target.load_state_dict(sd["target"])
-        self.opt.load_state_dict(sd["opt"])
+        parallel.load_optimizer_state(self.opt, sd["opt"], self.main)
         self.replay.load_state_dict(sd["replay"])
         self.env = load_env_state(self.env, sd, dev)
         self.step, self.train_steps = int(sd["step"]), int(sd["train_steps"])

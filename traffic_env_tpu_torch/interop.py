@@ -17,7 +17,11 @@ a flax ``QNet`` or ``ConvQNet`` param tree into the port's state_dict,
 and ``a3cnet_state_dict_from_flax`` and
 ``convgru_a3c_state_dict_from_flax`` an ``A3CNet`` or ``ConvGRUA3CNet``
 tree, ``dueling_qrnn_state_dict_from_flax`` and
-``polgrad_state_dict_from_flax`` a ``DuelingQRNN`` or ``PolGradNet`` tree.  ``load_teacher`` reads a distillation teacher: a ``.npz`` of a
+``polgrad_state_dict_from_flax`` a ``DuelingQRNN`` or ``PolGradNet`` tree.
+These state dicts hold the whole parameters; a module split over mp
+(``parallel.shard_params(module, "mp")``) loads them as they are, its
+``load_state_dict`` slicing each whole tensor to the rank's part.
+``load_teacher`` reads a distillation teacher: a ``.npz`` of a
 flax ``QNet``/``ConvQNet`` tree (``convert_teachers.py`` writes the
 repo's) or the port's own qlearn checkpoint directory.
 """

@@ -13,11 +13,15 @@ one card (NCCL), or on the CPU (gloo):
   (world / P) + local``, the rendezvous a TCP store at the coordinator.
 
 Rank ``r`` is the mesh position ``(r // mp, r % mp)``.  The envs shard
-on ``dp`` only: ranks that differ only in ``mp`` hold the same envs and
+on ``dp`` only: ranks that differ only in ``mp`` hold the same envs and,
+unless ``parallel.shard_params(module, "mp")`` splits them (``mp.py``),
 the same replicated parameters, as ``shard_train_state`` places them in
-the JAX package, and every collective here runs over the ranks of one
-``mp`` index (the *dp group*).  At world 1 (no process group) every
-helper returns its input: an unsharded run does not change.
+the JAX package.  The collectives of the env batch run over the ranks
+of one ``mp`` index (the *dp group*); those of the mp split over the
+ranks of one ``dp`` index (the *mp group*, ranks ``d * mp .. d * mp +
+mp - 1``), ``mp_all_gather`` and ``mp_all_reduce``.  At world 1 (no
+process group) every helper returns its input: an unsharded run does
+not change.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ class _World:
     mp: int = 1
     device: torch.device | None = None
     group: object = None        # this rank's dp group; None: the world
+    mp_group: object = None     # this rank's mp group; None: mp is 1
 
 
 # The layout of this process's rank, set by distributed_init: one per
@@ -77,6 +82,15 @@ def dp_rank() -> int:
 
 def dp_size() -> int:
     return _WORLD.dp
+
+
+def mp_rank() -> int:
+    """This rank's index on the mp axis: its part of a split layer."""
+    return _WORLD.rank % _WORLD.mp
+
+
+def mp_size() -> int:
+    return _WORLD.mp
 
 
 def is_primary() -> bool:
@@ -141,6 +155,31 @@ def all_gather(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.cat(parts, dim)
 
 
+def _mp_split() -> bool:
+    return _WORLD.size > 1 and _WORLD.mp > 1
+
+
+def mp_all_gather(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The mp group's tensors concatenated along ``dim`` in mp order: a
+    split layer's whole output (``dim=-1``) or weight (``dim=0``)."""
+    if not _mp_split():
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(_WORLD.mp)]
+    tdist.all_gather(parts, t, group=_WORLD.mp_group)
+    return torch.cat(parts, dim)
+
+
+def mp_all_reduce(tensors):
+    """Sum each tensor over the mp group, in place; returns the list."""
+    tensors = list(tensors)
+    if not _mp_split():
+        return tensors
+    for t in tensors:
+        tdist.all_reduce(t, group=_WORLD.mp_group)
+    return tensors
+
+
 def broadcast_object(obj, src: int = 0):
     """Rank ``src``'s picklable ``obj`` on every rank."""
     if _WORLD.size == 1:
@@ -164,8 +203,8 @@ def distributed_init(world_size: int, rank_: int, mesh_shape: str = "",
                      dev=None, timeout_s: float = TIMEOUT_S) -> None:
     """Join the process group of ``world_size`` ranks as ``rank_`` and
     record the layout: dp x mp from ``mesh_shape`` (all ranks on dp when
-    empty), the rank's device ``dev`` (made current on the card) and
-    its dp group.  ``init_method`` is ``tcp://host:port``."""
+    empty), the rank's device ``dev`` (made current on the card), its dp
+    group and its mp group.  ``init_method`` is ``tcp://host:port``."""
     global _WORLD
     dp, mp = mesh_dims(mesh_shape) if mesh_shape else (world_size, 1)
     if dp * mp != world_size:
@@ -176,15 +215,20 @@ def distributed_init(world_size: int, rank_: int, mesh_shape: str = "",
     tdist.init_process_group(
         backend, init_method=init_method, world_size=world_size,
         rank=rank_, timeout=datetime.timedelta(seconds=timeout_s))
-    group = None
+    group = mp_group = None
     if mp > 1:
-        # every rank makes every group, in the same order
+        # every rank makes every group, in the same order (NCCL waits
+        # otherwise): the dp groups, then the mp groups
         for m in range(mp):
             g = tdist.new_group([d * mp + m for d in range(dp)])
             if rank_ % mp == m:
                 group = g
+        for d in range(dp):
+            g = tdist.new_group([d * mp + m for m in range(mp)])
+            if rank_ // mp == d:
+                mp_group = g
     _WORLD = _World(size=world_size, rank=rank_, dp=dp, mp=mp, device=dev,
-                    group=group)
+                    group=group, mp_group=mp_group)
 
 
 def shutdown() -> None:

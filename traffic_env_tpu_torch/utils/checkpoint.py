@@ -10,10 +10,13 @@ checkpoint is one ``torch.save`` file of the train state's
 generator).  The JAX package's orbax schema migration is not ported.
 
 On a sharded run (``parallel/dist.py``) every rank calls ``save`` and
-``restore``: ``state_dict()`` gathers the global state on every rank and
-rank 0 alone writes it (the JAX package's process-0-owned checkpoint);
-rank 0 reads a checkpoint and sends it to the others, each of which
-loads its shard, so a checkpoint restores under any world size.
+``restore``: ``state_dict()`` gathers the global state on every rank
+(the envs over dp; the parameters and Adam moments of nets split by
+``parallel.shard_params(net, "mp")`` over mp) and rank 0 alone writes
+it (the JAX package's process-0-owned checkpoint, which holds global
+arrays); rank 0 reads a checkpoint and sends it to the others, each of
+which loads its shard and its mp part, so a checkpoint restores under
+any world size and mesh.
 """
 
 from __future__ import annotations

@@ -8,6 +8,8 @@ Phases, one JSON line each:
 1. card: the card's name and power limit (nvidia-smi).
 2. build: nvcc builds every kernel from ``traffic_env_tpu_torch/csrc/``
    into the package's ``_build/`` directory; seconds, registers, spills.
+   Meanwhile g++ builds the native simulator and the host runs the CPU
+   legs of exact_parity, which need no kernel.
 3. parity: the window kernel against its plain PyTorch version on the
    card, 3x3 grid, 4096 envs, 50 windows of random actions, for
    {schedule rows from a seeded numpy Poisson stream, device Poisson
@@ -23,11 +25,24 @@ Phases, one JSON line each:
    window's ticks, with lazy resets), then a second full reset; k = 1
    and the two-archetype table (``aidx`` in the stream).  Every leaf
    bit-equal, the reset counter included.
-5. bench: the benchmark path -- make_batched_env on a 3x3 grid of 250 m
-   roads, 4096 envs, device spawns, remi, lazy autoreset; reset, 24
-   warm-up agent steps, then 120 agent steps timed best of 3, each
-   ended by a host fetch.  Env-steps/s, and the kernel's launch count,
-   which must equal the windows run.
+5. bench: the benchmark path through ``traffic_env_tpu_torch.bench.
+   measure`` (``python -m traffic_env_tpu_torch.bench``) --
+   make_batched_env on a 3x3 grid of 250 m roads, 4096 envs, device
+   spawns, remi, lazy autoreset; reset, 24 warm-up agent steps, then 120
+   agent steps timed best of 3, each ended by a host fetch.
+   Env-steps/s, and the kernel's launch count, which must equal the
+   windows run.
+   parity_gate: the on-card gate (``python -m
+   traffic_env_tpu_torch.parity``), its three scenarios at full size:
+   the CUDA window env against the per-tick torch env, each bound to one
+   host schedule, from one init (cloned for the window side), over 240
+   windows of the bench workload at 256 envs, 50 all-red windows of 1x1
+   40 m roads at 128 envs (overflows and lazy resets), and 60 validate
+   windows at 128 envs; obs, reward and done bit-equal every window
+   (and the light times and trip histogram in validate mode), the final
+   state bit-equal.  One row a scenario (lanes reset, seconds,
+   launches == windows by variant); the gate's JSON goes to a temporary
+   directory.
    ticks: the per-tick env (``make_batched_env(core="fast")``, plain
    torch ticks) against the CUDA window env from one reset state with
    the same actions, 120 lazy-autoreset agent steps: 3x3 at 4096 envs
@@ -188,6 +203,9 @@ Phases, one JSON line each:
    dp-only and the unsharded steps, and the mp all-gathers and
    all-reduces a step with their bytes.  On two cards or more also the two-process CLI
    (``--num_processes=2``, ``CUDA_VISIBLE_DEVICES`` set per process).
+   bench_mesh: on four cards or more, ``python -m
+   traffic_env_tpu_torch.bench --mesh=4`` at 4096 envs (1,024 a card):
+   its weak-scaling line; on fewer cards a row that says it needs four.
 10. k2: ``random_rollout`` through ``make_batched_env(archetypes=TWO)``
    at 4096 envs, device spawns, 120 timed agent steps: env-steps/s, the
    truck share of the cars on the roads, launches == windows.
@@ -214,13 +232,15 @@ Phases, one JSON line each:
 
 Then the ``kernels`` line, the nvidia-smi line, and last the ``ok``
 line.  ``--tune`` adds phase 13 and ``--parent DIR`` phase 14.
-``--mesh_only`` runs the card, build and mesh phases alone,
+``--mesh_only`` runs the card, build and mesh phases (bench_mesh
+included) alone,
 ``--sim_only`` the card, build, gather_core and native phases.  Any
 failure exits non-zero before the ``ok`` line; without a CUDA device the
 script exits non-zero at once.
 """
 
 import argparse
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -240,8 +260,10 @@ import time
 import numpy as np
 import torch
 
+from traffic_env_tpu_torch import bench as torch_bench
 from traffic_env_tpu_torch import constants as C
 from traffic_env_tpu_torch import parallel
+from traffic_env_tpu_torch import parity as torch_parity
 from traffic_env_tpu_torch.algorithms import (a3c, baselines, cem, common,
                                               polgrad_rnn, qlearn, qrnn,
                                               run_alg)
@@ -634,41 +656,58 @@ def env_parity_phase():
 
 
 def bench_phase(card):
-    topo = GridRoad(3, 3, 250.0)
-    cfg = bench_config(topo)
+    """The bench path through ``traffic_env_tpu_torch.bench.measure``,
+    the function behind ``python -m traffic_env_tpu_torch.bench``."""
+    cfg = torch_bench.bench_config(N_ENVS)
     agent_steps, warmup, repeats = 120, 24, 3
-    benv = make_batched_env(topo, cfg, N_ENVS, device="cuda")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
     window_cuda.launches.clear()
-    state = benv.init(gen)
-    state, obs = benv.reset(state)
-    state, gen, rews, dones = random_rollout(benv, state, gen, warmup)
-    float(rews.sum())
-    best, runs = 0.0, []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        state, gen, rews, dones = random_rollout(benv, state, gen,
-                                                 agent_steps)
-        # a host fetch that depends on every window ends the timed run
-        fetched = float(rews.sum() + dones.sum())
-        dt = time.perf_counter() - t0
-        rate = agent_steps * cfg.light_iterations * N_ENVS / dt
-        runs.append(rate)
-        best = max(best, rate)
+    m = torch_bench.measure(N_ENVS, agent_steps, warmup, repeats,
+                            "window", DEVICE)
     windows = 1 + cfg.warmup_lights + warmup + repeats * agent_steps
     launches = check_launches("bench", {"window": windows})["window"]
-    obs_ok = (tuple(obs.shape) == (benv.obs_dim, N_ENVS)
-              and bool(torch.isfinite(obs).all())
-              and bool(torch.isfinite(rews).all()) and fetched == fetched)
+    obs_ok = (tuple(m.obs.shape) == (m.benv.obs_dim, N_ENVS)
+              and bool(torch.isfinite(m.obs).all())
+              and bool(torch.isfinite(m.rews).all())
+              and m.fetched == m.fetched)
     emit({"phase": "bench", "card": card, "envs": N_ENVS,
-          "env_steps_per_s": best, "env_steps_per_s_runs": runs,
+          "env_steps_per_s": m.rate, "env_steps_per_s_runs": m.rates,
           "kernel_launches": launches, "windows_run": windows,
-          "dones_last_run": int(dones.sum()), "outputs_finite": obs_ok})
+          "dones_last_run": int(m.dones.sum()), "outputs_finite": obs_ok})
     if not obs_ok:
         raise SmokeFailure("bench path produced non-finite or misshapen "
                            "output")
-    return benv, state, launches, best
+    return m.benv, m.state, launches, m.rate
+
+
+def parity_gate_phase(card):
+    """The on-card gate, ``python -m traffic_env_tpu_torch.parity``: each
+    of its three scenarios at full size (the bench scenario's 240
+    windows), the CUDA window env against the per-tick torch env, with
+    the launch counts set to 0 just before it; one row a scenario, and
+    the gate's JSON written under a temporary directory."""
+    rows = []
+    for name, (grid, kw, _, n, *_) in torch_parity.SCENARIOS.items():
+        _, cfg = torch_parity.scenario_config(*grid, **kw)
+        variant = "window_telemetry" if cfg.mode == "validate" else "window"
+        reset_w = 1 + cfg.warmup_lights + cfg.history - 1
+        windows = reset_w + (n or 240)
+        window_cuda.launches.clear()
+        r = torch_parity.scenario(name, DEVICE)
+        got = check_launches(f"parity_gate_{name}", {variant: windows}) \
+            if r["ok"] else dict(window_cuda.launches)
+        emit({"phase": "parity_gate", "card": card, **r,
+              "launches": got, "windows_run": {variant: windows}})
+        rows.append(r)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parity_")
+    try:
+        torch_parity.report(rows, DEVICE,
+                            os.path.join(tmp, "PARITY_H100.json"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not all(r["ok"] for r in rows):
+        raise SmokeFailure("parity_gate: " + "; ".join(
+            f"{r['name']}: {r['mismatch']}" for r in rows if not r["ok"]))
+    return rows
 
 
 def timing_phase(card, state, topo, vcfg, archetypes=None):
@@ -950,53 +989,65 @@ def stream_timer():
         ScheduleStream.window = real
 
 
-def exact_parity_case(name, topo, cfg, archetypes, B, episodes=3,
-                      seed=60):
+def exact_parity_leg(topo, cfg, archetypes, B, dev, episodes=3, seed=60):
+    """One side of an exact_parity case: the env on ``dev`` with its own
+    ScheduleStream, reset, ``episodes`` episodes of lazy-autoreset steps
+    on the case's random actions with a schedule refresh at the top of
+    each, then a second full reset.  Returns (the obs, reward, done and
+    light-time trace on the host, the final SimState's arrays, lazy
+    resets, refresh bases, the final state)."""
+    I = topo.intersections
+    k = exact_max_per_tick(cfg)
+    steps = cfg.episode_len
+    acts = np.random.RandomState(seed).randint(
+        2, size=(episodes * steps, I, B)).astype(np.int32)
+    stream = ScheduleStream(topo, cfg, [cfg.seed + i for i in range(B)],
+                            exact_chunk_ticks(cfg), k, archetypes=archetypes)
+    benv = attach_schedule_stream(make_batched_env(
+        topo, cfg, B, on_device_spawns=False, max_spawns_per_tick=k,
+        device=dev, archetypes=archetypes), stream)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    st, obs = benv.reset(benv.init(gen))
+    trace, dones, bases = [obs.cpu()], 0, []
+    for e in range(episodes):
+        st = refresh_env_schedule(benv, st)
+        bases.append(int(st.sched.base.min()))
+        for t in range(steps):
+            st, obs, rew, done, info = benv.step_autoreset_lazy(
+                st, torch.as_tensor(acts[e * steps + t], device=dev))
+            trace += [obs.cpu(), rew.cpu(), done.cpu()]
+            if info is not None:
+                trace.append(info["light_times"].cpu())
+            dones += int(done.sum())
+    st, obs = benv.reset(st)
+    trace.append(obs.cpu())
+    return trace, sim_to_arrays(st.sim), dones, bases, st
+
+
+def exact_parity_case(name, topo, cfg, archetypes, B, cpu_leg,
+                      episodes=3, seed=60):
     """The CUDA env and the CPU env, each with its own ScheduleStream
     of the same seeds (--exact), from a reset drawn from the state's
     reset stream, on the same random actions: ``episodes`` episodes of
     lazy-autoreset steps with a schedule refresh at the top of each,
-    then a second full reset.  obs, reward, done and every SimState
-    leaf (the reset counter included) must be bit-equal; in validate
-    mode also the light times, and the trip-time histogram among the
-    leaves.  The card must have launched only the variant the spec
-    names."""
-    I = topo.intersections
+    then a second full reset (:func:`exact_parity_leg`; ``cpu_leg`` is
+    the CPU side, run while the kernel built).  obs, reward, done and every
+    SimState leaf (the reset counter included) must be bit-equal; in
+    validate mode also the light times, and the trip-time histogram
+    among the leaves.  The card must have launched only the variant the
+    spec names."""
     k = exact_max_per_tick(cfg)
     chunk = exact_chunk_ticks(cfg)
     steps = cfg.episode_len
     variant = make_window_spec(topo, cfg, False, k,
                                archetypes=archetypes).variant
-    acts = np.random.RandomState(seed).randint(
-        2, size=(episodes * steps, I, B)).astype(np.int32)
-    outs = {}
     window_cuda.launches.clear()
-    for dev in (DEVICE, "cpu"):
-        stream = ScheduleStream(topo, cfg, [cfg.seed + i for i in range(B)],
-                                chunk, k, archetypes=archetypes)
-        benv = attach_schedule_stream(make_batched_env(
-            topo, cfg, B, on_device_spawns=False, max_spawns_per_tick=k,
-            device=dev, archetypes=archetypes), stream)
-        gen = torch.Generator()
-        gen.manual_seed(seed)
-        st, obs = benv.reset(benv.init(gen))
-        trace, dones, bases = [obs.cpu()], 0, []
-        for e in range(episodes):
-            st = refresh_env_schedule(benv, st)
-            bases.append(int(st.sched.base.min()))
-            for t in range(steps):
-                st, obs, rew, done, info = benv.step_autoreset_lazy(
-                    st, torch.as_tensor(acts[e * steps + t], device=dev))
-                trace += [obs.cpu(), rew.cpu(), done.cpu()]
-                if info is not None:
-                    trace.append(info["light_times"].cpu())
-                dones += int(done.sum())
-        st, obs = benv.reset(st)
-        trace.append(obs.cpu())
-        outs[dev] = (trace, sim_to_arrays(st.sim), dones, bases, st)
+    card_leg = exact_parity_leg(topo, cfg, archetypes, B, DEVICE,
+                                episodes, seed)
     torch.cuda.synchronize()
     launches = dict(window_cuda.launches)
-    (tk, sk, dones, bases, st), (tp, sp, _, _, _) = outs[DEVICE], outs["cpu"]
+    (tk, sk, dones, bases, st), (tp, sp, _, _, _) = card_leg, cpu_leg
     eq_trace = len(tk) == len(tp) and all(torch.equal(a, b)
                                           for a, b in zip(tk, tp))
     unequal = sorted(n for n in sp if not np.array_equal(sk[n], sp[n]))
@@ -1040,28 +1091,44 @@ def exact_parity_case(name, topo, cfg, archetypes, B, episodes=3,
     return row
 
 
-def exact_parity_phase(n_envs):
-    """--exact on the card against the CPU at the envs of the
-    exact_qlearn phase: 3x3 of 100 m roads (lanes overflow and reset
-    lazily; the rows a tick are the qlearn defaults'), three 12-step
-    episodes that run past one window's ticks; the core and telemetry
-    (validate) variants at k = 1, and the two-archetype table."""
+def exact_parity_cases(n_envs):
+    """(name, topology, config, archetypes, envs, seed) of each
+    exact_parity case: 3x3 of 100 m roads (lanes overflow and reset
+    lazily), three 12-step episodes that run past one window's ticks;
+    the core and telemetry (validate) variants at k = 1, and the
+    two-archetype table."""
     topo = GridRoad(3, 3, 100.0)
     cfg = derive_spawn_rate(Config(trainer="random", history=1,
                                    episode_secs=60,
                                    road_length=100.0).derive(),
                             topo.open_sides(0))
+    return [("3x3_exact_k1", topo, cfg, None, n_envs, 60),
+            ("3x3_exact_validate", topo, cfg.replace(mode="validate"),
+             None, n_envs, 62),
+            ("3x3_exact_k2", topo, cfg, TWO, n_envs, 61)]
+
+
+def exact_parity_cpu_legs(n_envs):
+    """The CPU side of every exact_parity case, by name: it needs no
+    kernel, so it runs while nvcc builds one."""
+    return {name: exact_parity_leg(topo, cfg, arch, B, "cpu", seed=seed)
+            for name, topo, cfg, arch, B, seed in exact_parity_cases(n_envs)}
+
+
+def exact_parity_phase(n_envs, cpu_legs):
+    """--exact on the card against the CPU at the envs of the
+    exact_qlearn phase (:func:`exact_parity_cases`; the rows a tick are
+    the qlearn defaults'); ``cpu_legs`` are the CPU sides, by name, from
+    :func:`exact_parity_cpu_legs`."""
+    cases = exact_parity_cases(n_envs)
     rows_qlearn = exact_max_per_tick(derive_spawn_rate(
         qlearn_config(), GridRoad(3, 3, 250.0).open_sides(0)))
-    if exact_max_per_tick(cfg) != rows_qlearn:
+    if exact_max_per_tick(cases[0][2]) != rows_qlearn:
         raise SmokeFailure("exact_parity: rows a tick differ from the "
                            "qlearn path's")
-    return [exact_parity_case("3x3_exact_k1", topo, cfg, None, n_envs),
-            exact_parity_case("3x3_exact_validate", topo,
-                              cfg.replace(mode="validate"), None, n_envs,
-                              seed=62),
-            exact_parity_case("3x3_exact_k2", topo, cfg, TWO, n_envs,
-                              seed=61)]
+    return [exact_parity_case(name, topo, cfg, arch, B, cpu_legs[name],
+                              seed=seed)
+            for name, topo, cfg, arch, B, seed in cases]
 
 
 def exact_qlearn_phase(card, n_envs):
@@ -2771,7 +2838,8 @@ def native_phase(card):
     (obs, reward, done every tick, remi every window, overflow resets on
     the same phases, the rings and pointers at the end), then
     env-steps/s/core of ``NativeSim.run`` on the 3x3 workload, timed as
-    the JAX package's ``bench.py --core=native`` times it: 24 warm-up
+    the JAX package's ``bench.py --core=native`` times it
+    (``traffic_env_tpu_torch.bench.native_cpu_baseline``): 24 warm-up
     agent steps, then the best of 3 runs of 120 agent steps (10 ticks
     each), the actions and arrival lists made before each run."""
     from traffic_env_tpu_torch.oracle import OracleSim, PoissonSpawner
@@ -2814,38 +2882,14 @@ def native_phase(card):
             and nsim.generated_cars == oracle.generated_cars):
         raise SmokeFailure("native: pointers or car counts differ")
 
-    # the bench's native baseline
-    spawner = PoissonSpawner(np.random.RandomState(0), cfg.cars_per_sec,
-                             cfg.rate)
-    rng = np.random.RandomState(1)
-    bsim = native.NativeSim(topo, cfg)
-    bsim.reset(rng.randint(2, size=I).astype(np.int32))
-
-    def stream(agent_steps):
-        ticks = agent_steps * W
-        acts = np.repeat(rng.randint(2, size=(agent_steps, I)), W,
-                         axis=0).astype(np.int32)
-        off = np.zeros(ticks + 1, np.int32)
-        roads = []
-        for t in range(ticks):
-            roads.extend(r for r, _, _ in spawner.tick(topo.entrypoints))
-            off[t + 1] = len(roads)
-        return (acts, off, np.asarray(roads, np.int32),
-                rng.randint(2, size=(256, I)).astype(np.int32))
-
-    bsim.run(*stream(24)[:3], W, stream(1)[3])
-    rates = []
-    for _ in range(3):
-        acts, off, roads, ph = stream(120)
-        t0 = time.perf_counter()
-        bsim.run(acts, off, roads, W, ph)
-        rates.append(120 * W / (time.perf_counter() - t0))
+    # the bench's native baseline (``bench.py --core=native``)
+    line, rates = torch_bench.native_cpu_baseline(120, 24, 3)
     row = {"phase": "native", "card": card, "build_s": build_s,
            "gxx_s": info["seconds"], "parity_ticks": NATIVE_PARITY_TICKS,
            "parity_resets": resets, "generated_cars": nsim.generated_cars,
            "bit_equal": True,
            "env_steps_per_sec_per_core": max(rates),
-           "env_steps_per_sec_per_core_runs": rates,
+           "env_steps_per_sec_per_core_runs": rates, "bench_line": line,
            "host_cpus": os.cpu_count()}
     emit(row)
     return row
@@ -3357,6 +3401,32 @@ def mesh_phase(card):
     return row, ref_q
 
 
+BENCH_MESH = 4
+
+
+def bench_mesh_phase(card):
+    """``python -m traffic_env_tpu_torch.bench --mesh=4`` at 4096 envs
+    (1,024 a card, NCCL, one rank a card) on a machine with four cards
+    or more: its line; on fewer cards a row that says the case needs
+    four."""
+    cards = torch.cuda.device_count()
+    if cards < BENCH_MESH:
+        row = {"phase": "bench_mesh", "card": card, "cards": cards,
+               "skipped": f"needs {BENCH_MESH} cards"}
+        emit(row)
+        return row
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        line = torch_bench.main([f"--mesh={BENCH_MESH}",
+                                 f"--num_envs={N_ENVS}"])
+    row = {"phase": "bench_mesh", "card": card, "cards": cards,
+           "seconds_with_startup": time.perf_counter() - t0, **line}
+    emit(row)
+    if not line["scaling_efficiency"] > 0:
+        raise SmokeFailure("bench_mesh: no rate")
+    return row
+
+
 # -- mesh_mp: the dp x mp mesh and the mp split -------------------------------
 
 MP_MESH = "2,2"
@@ -3664,22 +3734,27 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    # nvcc builds the kernel while the host builds the native simulator
+    # (g++, csrc/traffic_native.cpp) and runs exact_parity's CPU legs
     t0 = time.perf_counter()
-    info = _build.build("window")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        nvcc = pool.submit(_build.build, "window")
+        hinfo = _build.build_host("traffic_native")
+        gxx_wall = time.perf_counter() - t0
+        cpu_legs = None if args.mesh_only or args.sim_only else \
+            exact_parity_cpu_legs(args.exact_envs)
+        info = nvcc.result()
     window_cuda.load()
     emit({"phase": "build", "kernel": "window",
           "source": "traffic_env_tpu_torch/csrc/window.cu",
           "seconds": time.perf_counter() - t0,
           "nvcc_seconds": info["seconds"],
+          "ran_beside": "g++ and exact_parity's CPU legs",
           "ptxas": _build.ptxas_usage(info["log"]),
           "ptxas_log": info["log"].strip().splitlines()[-4:]})
-    # the native simulator's g++ build (csrc/traffic_native.cpp)
-    t0 = time.perf_counter()
-    hinfo = _build.build_host("traffic_native")
     emit({"phase": "build", "library": "traffic_native",
           "source": "traffic_env_tpu_torch/csrc/traffic_native.cpp",
-          "seconds": time.perf_counter() - t0,
-          "gxx_seconds": hinfo["seconds"]})
+          "seconds": gxx_wall, "gxx_seconds": hinfo["seconds"]})
 
     if args.mesh_only or args.sim_only:
         if args.mesh_only:
@@ -3687,6 +3762,7 @@ def main():
             mesh_row, ref_q = mesh_phase(card)
             mesh_mp_phase(card, ref_q,
                           mesh_row["agent_step_ms"]["qlearn"]["sharded"])
+            bench_mesh_phase(card)
         if args.sim_only:
             gather_core_phase(card)
             native_phase(card)
@@ -3697,9 +3773,10 @@ def main():
         return 0
     parity = parity_phase()
     env_parity_phase()
-    exact_parity_phase(args.exact_envs)
+    exact_parity_phase(args.exact_envs, cpu_legs)
     topo = GridRoad(3, 3, 250.0)
     benv, state, launches, best = bench_phase(card)
+    gate_rows = parity_gate_phase(card)
     tick_rows = ticks_phase(card)
     tparity = telemetry_parity_phase()
     vparity = variant_parity_phase()
@@ -3716,6 +3793,7 @@ def main():
     mesh_row, ref_q = mesh_phase(card)
     mp_row = mesh_mp_phase(card, ref_q,
                            mesh_row["agent_step_ms"]["qlearn"]["sharded"])
+    bench_mesh_phase(card)
     exact_rows = exact_qlearn_phase(card, args.exact_envs)
     conv_rows = conv_qlearn_phase(card)
     a3c_phase(card, "a3c", {})
@@ -3787,6 +3865,7 @@ def main():
                                  "env_steps_per_sec"))},
           "native_env_steps_per_s_per_core":
               native_row["env_steps_per_sec_per_core"],
+          "parity_gate_wall_s": {r["name"]: r["wall_s"] for r in gate_rows},
           **{f"profiler_{k}_{m}": prof_rows[f"{k}_trace"][m]
              for k in ("bench", "qlearn")
              for m in ("host_ops_per_step", "kernel_launches_per_step",

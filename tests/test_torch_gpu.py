@@ -1,6 +1,7 @@
 """Card-only tests: each CUDA kernel against its plain PyTorch version
 on the card, bit for bit; the nets on the card against the CPU; the dp x
-mp mesh and the two-process CLI on the cards.  They skip without a card
+mp mesh and the two-process CLI on the cards; the bench line and the
+parity gate.  They skip without a card
 (or without enough cards).  This file imports
 no JAX, so it runs on a machine with the card and without JAX:
 
@@ -649,3 +650,38 @@ def test_two_process_cli_with_a_card_each(tmp_path):
         assert p.returncode == 0, out[-3000:]
     assert (tmp_path / "p0" / "model.ckpt").is_file()
     assert not (tmp_path / "p1").exists()
+
+
+@pytest.mark.gpu
+def test_bench_line_on_card(capsys):
+    """On a CUDA card: ``python -m traffic_env_tpu_torch.bench`` at 4096
+    envs, 4 timed agent steps: the single-card line of the JAX bench's
+    keys, with a rate."""
+    import json
+
+    from traffic_env_tpu_torch import bench
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    line = bench.main(["--num_envs=4096", "--agent_steps=4",
+                       "--warmup_steps=2", "--repeats=1"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
+        == line
+    assert list(line) == ["metric", "unit", "value", "vs_baseline"]
+    assert line["unit"] == "env-steps/s/chip" and line["value"] > 0
+
+
+@pytest.mark.gpu
+def test_parity_gate_on_card(tmp_path):
+    """On a CUDA card: ``python -m traffic_env_tpu_torch.parity
+    --windows=8``: every scenario bit-equal, ``ok`` and ``on_chip``,
+    exit code 0."""
+    import json
+
+    from traffic_env_tpu_torch import parity
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out = tmp_path / "gate.json"
+    code = parity.main(["--windows=8", f"--out={out}"])
+    got = json.loads(out.read_text())
+    assert [s["mismatch"] for s in got["scenarios"]] == [None] * 3
+    assert code == 0 and got["ok"] and got["on_chip"]

@@ -9,6 +9,9 @@ the JAX package's, tolerance 0.
 * ``OracleEnv``: the wrapped stack (Repeater, Remi, Localize, Squish,
   Warmup, History, validate light times) on the same seeds and sample
   streams, episodes ended by overflow and reset.
+* The spawners: ``arrivals(entrypoints, n)`` (the schedules' faster
+  draws) against ``n`` ticks of the JAX package's spawner, and
+  ``_randint`` against ``RandomState.randint``.
 """
 
 import numpy as np
@@ -17,10 +20,14 @@ import pytest
 from traffic_env_tpu.config import Config as JConfig
 from traffic_env_tpu.config import derive_spawn_rate as j_derive_spawn_rate
 from traffic_env_tpu.oracle import OracleSim as JOracleSim
+from traffic_env_tpu.oracle import PoissonSpawner as JPoissonSpawner
+from traffic_env_tpu.oracle import RegularSpawner as JRegularSpawner
 from traffic_env_tpu.oracle.stack import OracleEnv as JOracleEnv
 from traffic_env_tpu.topology import GridRoad as JGridRoad
 from traffic_env_tpu_torch.config import Config, derive_spawn_rate
-from traffic_env_tpu_torch.oracle import OracleEnv, OracleSim
+from traffic_env_tpu_torch.oracle import (OracleEnv, OracleSim,
+                                          PoissonSpawner, RegularSpawner)
+from traffic_env_tpu_torch.oracle.spawners import _randint
 from traffic_env_tpu_torch.topology import GridRoad
 
 
@@ -155,3 +162,45 @@ def test_oracle_env_matches_jax_oracle_env(name):
                 break
     assert dones >= 1
     assert je.sim.trip_times == te.sim.trip_times
+
+
+@pytest.mark.parametrize("poisson,k,rate", [
+    (True, 1, 0.2), (True, 2, 0.2), (True, 1, 3.0), (False, 1, 0.2),
+    (False, 2, 3.0)])
+def test_spawner_arrivals_are_the_jax_spawners_ticks(poisson, k, rate):
+    """``arrivals`` in calls of 1 to 400 ticks gives the JAX package's
+    spawner's ticks (road and archetype index of every car), and the
+    RandomState ends in the same place: sparse and dense arrivals,
+    one and two archetypes."""
+    jt, jc, tt, tc = configs(2, 3, 250.0, local_cars_per_sec=rate,
+                             poisson=poisson)
+    arch = None if k == 1 else np.stack([np.ones(10, np.float32),
+                                         np.full(10, 2.0, np.float32)])
+    jcls, cls = ((JPoissonSpawner, PoissonSpawner) if poisson
+                 else (JRegularSpawner, RegularSpawner))
+    for seed in (0, 7):
+        js = jcls(np.random.RandomState(seed), jc.cars_per_sec, jc.rate,
+                  arch)
+        ts = cls(np.random.RandomState(seed), tc.cars_per_sec, tc.rate,
+                 arch)
+        got, ticks = [], 0
+        for n in (1, 3, 400, 1, 57, 200):
+            got += [[tuple(c) for c in row]
+                    for row in ts.arrivals(tt.entrypoints, n)]
+            ticks += n
+        want = [[(int(r), int(ai)) for r, _, ai in js.tick(jt.entrypoints)]
+                for _ in range(ticks)]
+        assert got == want
+        assert sum(map(len, got)) > 20
+        assert js.rand.randint(2**31) == ts.rand.randint(2**31)
+
+
+def test_randint_is_the_legacy_randint():
+    """``_randint(raw, n)`` is ``RandomState.randint(n)`` draw for draw,
+    from one word (or none, for n = 1) up to 2**32."""
+    for seed in range(20):
+        a, b = np.random.RandomState(seed), np.random.RandomState(seed)
+        raw = b._bit_generator.random_raw
+        for n in (1, 2, 3, 12, 16, 17, 1000003, 2**31 + 1, 2**32) * 20:
+            assert _randint(raw, n) == a.randint(n)
+        assert a.random_sample() == b.random_sample()

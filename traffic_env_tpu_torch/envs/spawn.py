@@ -13,7 +13,7 @@ device, once per refresh.
 from __future__ import annotations
 
 from collections import deque
-from itertools import islice
+from itertools import chain, islice
 from typing import NamedTuple
 
 import numpy as np
@@ -40,19 +40,20 @@ def _spawner(cfg: Config, seed, archetypes):
                archetypes)
 
 
-def _ticks(spawner, topo: GridRoad) -> list[tuple[int, int]]:
-    """One tick of a spawner's arrivals as (entry road, archetype)."""
-    return [(road, ai) for road, _, ai in spawner.tick(topo.entrypoints)]
-
-
 def _lay_out(rows, i: int, counts, roads, aidx) -> None:
-    """Writes env ``i``'s arrival rows, one list of (road, archetype) a
-    tick, into the schedule arrays (T, [K,] B)."""
-    for t, row in enumerate(rows):
-        counts[t, i] = len(row)
-        roads[t, :len(row), i] = [r for r, _ in row]
-        if aidx is not None:
-            aidx[t, :len(row), i] = [a for _, a in row]
+    """Writes env ``i``'s arrival rows, one sequence of (road, archetype)
+    a tick, into the schedule arrays (T, [K,] B)."""
+    rows = list(rows)
+    n = np.fromiter(map(len, rows), np.int64, len(rows))
+    counts[:len(rows), i] = n
+    cars = np.array(list(chain.from_iterable(rows)), np.int32).reshape(-1, 2)
+    if not len(cars):
+        return
+    t = np.repeat(np.arange(len(rows)), n)
+    col = np.arange(len(cars)) - np.repeat(np.cumsum(n) - n, n)
+    roads[t, col, i] = cars[:, 0]
+    if aidx is not None:
+        aidx[t, col, i] = cars[:, 1]
 
 
 def build_schedule(topo: GridRoad, cfg: Config, seed, ticks: int,
@@ -63,7 +64,7 @@ def build_schedule(topo: GridRoad, cfg: Config, seed, ticks: int,
     ``archetypes`` table each car's ``randint`` draw is kept in
     ``aidx``."""
     spawner = _spawner(cfg, seed, archetypes)
-    rows = [_ticks(spawner, topo) for _ in range(ticks)]
+    rows = spawner.arrivals(topo.entrypoints, ticks)
     k = max(max(map(len, rows), default=0), 1)
     if max_per_tick is not None:
         assert k <= max_per_tick, (
@@ -158,24 +159,28 @@ class ScheduleStream:
                     f"{int(self._base[i]) + self.chunk}); a host-loop "
                     "segment consumed more ticks than chunk_ticks: "
                     "refresh more often or enlarge the chunk")
-            while self._base[i] < g:
-                if self._buf[i]:
-                    self._buf[i].popleft()
-                else:
-                    # fast-forward past ticks never laid out: the
-                    # spawner is still consumed every tick, so its
-                    # MT19937 stream stays aligned with the reference
-                    self._sp[i].tick(self.topo.entrypoints)
-                    self._next[i] += 1
-                self._base[i] += 1
-            while self._next[i] < g + self.chunk:
-                row = _ticks(self._sp[i], self.topo)
-                if len(row) > self.k:
+            buf = self._buf[i]
+            drop = min(g - int(self._base[i]), len(buf))
+            for _ in range(drop):
+                buf.popleft()
+            # fast-forward past ticks never laid out: the spawner is
+            # still consumed every tick, so its MT19937 stream stays
+            # aligned with the reference
+            skip = g - int(self._base[i]) - drop
+            if skip > 0:
+                self._sp[i].arrivals(self.topo.entrypoints, skip)
+                self._next[i] += skip
+            self._base[i] = g
+            need = g + self.chunk - int(self._next[i])
+            if need > 0:
+                rows = self._sp[i].arrivals(self.topo.entrypoints, need)
+                burst = max(map(len, rows))
+                if burst > self.k:
                     raise AssertionError(
-                        f"schedule burst {len(row)} exceeds "
+                        f"schedule burst {burst} exceeds "
                         f"max_per_tick={self.k}")
-                self._buf[i].append(row)
-                self._next[i] += 1
+                buf.extend(rows)
+                self._next[i] += need
             self._served[i] = True
             _lay_out(islice(self._buf[i], self.chunk), i, counts, roads,
                      aidx)

@@ -1,6 +1,7 @@
 """The port's profiler on the CPU: the sweep on both cores and
 the learner throughput print one JSON line with the keys of the JAX
-package's ``profiler.py``, ``--trace`` writes a trace, and without
+package's ``profiler.py``, ``--trace`` writes a trace with the program's
+spans and prints the tracer's table of them, and without
 ``--platform=cpu`` and without a card it raises."""
 
 import json
@@ -79,12 +80,45 @@ def test_trace_writes_a_trace(tmp_path, capsys):
     args = profiler.parse_args(["--platform=cpu", "--num_envs=8",
                                 "--episodes=1", f"--trace={d}"])
     row, prof = profiler.sweep(args, **TINY)
-    assert f"trace written to {d}" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert f"trace written to {d}" in out
     with open(os.path.join(d, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     names = {e.get("name") for e in events}
     assert "aten::add" in names or "aten::add_" in names
     assert any(e.key.startswith("aten::") for e in prof.key_averages())
+    # the program's spans, and the tracer's table of them
+    assert {"env.step", "env.window", "env.shape"} <= {
+        e.get("name") for e in events if e.get("cat") == "user_annotation"}
+    assert span_rows(out) >= {"env.step", "env.window", "env.shape"}
+
+
+def span_rows(out):
+    """The span names of the tracer's table in printed ``out``."""
+    lines = out.splitlines()
+    head = [i for i, l in enumerate(lines) if l.split()[:2] == ["span",
+                                                              "count"]]
+    assert len(head) == 1 and lines[head[0]].split()[2:] == \
+        ["host", "ms", "self", "ms", "device", "ms"]
+    return {l.split()[0] for l in lines[head[0] + 1:] if l.strip()}
+
+
+def test_trainer_trace_prints_the_qlearn_spans(tmp_path, capsys):
+    """``--trainer=qlearn --trace=DIR``: the episode's ``qlearn.*`` and
+    ``env.*`` spans in DIR/trace.json and in the printed table."""
+    d = str(tmp_path / "prof")
+    args = profiler.parse_args(["--platform=cpu", "--num_envs=4",
+                                "--episodes=1", "--trainer=qlearn",
+                                f"--trace={d}"])
+    profiler.profile_training(args, grid_m=2, grid_n=2, episode_secs=40,
+                              buffer_size=32, batch_size=4)
+    out = capsys.readouterr().out
+    want = {"qlearn.act", "qlearn.insert", "qlearn.sgd", "env.step"}
+    assert span_rows(out) >= want
+    with open(os.path.join(d, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    assert want <= {e.get("name") for e in events
+                    if e.get("cat") == "user_annotation"}
 
 
 def test_the_card_is_the_default(monkeypatch):

@@ -50,6 +50,7 @@ from ..config import Config
 from ..envs.env import EnvState
 from ..models.nets import A3CNet, ConvGRUA3CNet
 from ..ops.discount import gae
+from ..utils import trace
 from .common import (build_env, env_shard, env_state_dict, handle_modes,
                      load_env_state, make_expert_action, refresh_schedule,
                      trip_hist, validate_telemetry, validation_hook)
@@ -181,17 +182,20 @@ def make_fns(cfg: Config, benv, topo) -> A3CFns:
             (bc or cfg.bc_anchor > 0)
         seq = {k: [] for k in ("obs", "act", "rew", "value", "done",
                                "expert")}
-        with torch.no_grad():
+        with trace.span("a3c.rollout"), torch.no_grad():
             for i in range(cfg.batch_size):
-                obs_bf = flat_bf(ts.obs)
-                scores, value, carry = forward(ts.net, obs_bf, ts.gru)
-                ea = expert_action(ts.step + i, ts.env, obs_bf) \
-                    if want_expert else None
+                with trace.span("a3c.act"):
+                    obs_bf = flat_bf(ts.obs)
+                    scores, value, carry = forward(ts.net, obs_bf, ts.gru)
+                    a = None if bc else sigmoid_decision(
+                        ts.generator, scores, eps, cfg.exploration,
+                        shard=shard)
+                ea = None
+                if want_expert:
+                    with trace.span("a3c.teacher"):
+                        ea = expert_action(ts.step + i, ts.env, obs_bf)
                 if bc:
                     a = ea
-                else:
-                    a = sigmoid_decision(ts.generator, scores, eps,
-                                         cfg.exploration, shard=shard)
                 ts.env, ts.obs, rew, done, _ = benv.step_autoreset_lazy(
                     ts.env, a.T.contiguous())
                 # the carry restarts at an env's autoreset
@@ -235,41 +239,48 @@ def make_fns(cfg: Config, benv, topo) -> A3CFns:
         replayed window, ``step += batch_size``.  Returns (loss, mean
         scaled reward, policy loss, value loss, entropy) as device
         scalars, this rank's (``run_episode`` reduces them)."""
-        with torch.no_grad():
-            _, v_boot, _ = forward(ts.net, flat_bf(ts.obs), ts.gru)
-            rew_seq = seq["rew"] / reward_scale
-            adv, returns = gae(rew_seq, seq["value"], v_boot, cfg.gamma,
-                               cfg.lam, nd=1.0 - seq["done"].to(F32))
-            if cfg.norm_adv:
-                adv = normalize_advantages(adv)
-            if cfg.sil:
-                adv = torch.clamp(adv, min=0.0)
-            if bc:
-                # BC phase: unit-weight cross-entropy on the expert's
-                # actions; the value head still fits the returns
-                adv = torch.ones_like(adv)
-        expert_seq = anchor_w = None
-        if cfg.bc_anchor > 0:
-            # the anchor acts after the BC phase only
-            expert_seq = seq["expert"]
-            anchor_w = 0.0 if bc else float(np.float32(cfg.bc_anchor))
-        loss, aux = loss_fn(ts.net, seq["obs"], seq["act"], adv, returns,
-                            seq["done"], carry0, expert_seq, anchor_w)
-        ts.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        grads = all_reduce_grads([p.grad for p in ts.net.parameters()])
-        # optax.clip_by_global_norm: scale by max / norm when norm >= max
-        gnorm = parallel.global_norm(ts.net, grads)
-        keep = gnorm < CLIP_NORM
-        for g in grads:
-            g.copy_(torch.where(keep, g, (g / gnorm) * CLIP_NORM))
-        lr = window_lr(cfg, ts.step // cfg.batch_size)
-        for group in ts.opt.param_groups:
-            group["lr"] = lr
-        ts.opt.step()
-        ts.step += cfg.batch_size
-        return (loss.detach(), rew_seq.mean(),
-                *(x.detach() for x in aux))
+        with trace.span("a3c.update"):
+            with torch.no_grad():
+                _, v_boot, _ = forward(ts.net, flat_bf(ts.obs), ts.gru)
+                rew_seq = seq["rew"] / reward_scale
+                adv, returns = gae(rew_seq, seq["value"], v_boot, cfg.gamma,
+                                   cfg.lam, nd=1.0 - seq["done"].to(F32))
+                if cfg.norm_adv:
+                    adv = normalize_advantages(adv)
+                if cfg.sil:
+                    adv = torch.clamp(adv, min=0.0)
+                if bc:
+                    # BC phase: unit-weight cross-entropy on the expert's
+                    # actions; the value head still fits the returns
+                    adv = torch.ones_like(adv)
+            expert_seq = anchor_w = None
+            if cfg.bc_anchor > 0:
+                # the anchor acts after the BC phase only
+                expert_seq = seq["expert"]
+                anchor_w = 0.0 if bc else float(np.float32(cfg.bc_anchor))
+            with trace.span("a3c.update.loss"):
+                loss, aux = loss_fn(ts.net, seq["obs"], seq["act"], adv,
+                                    returns, seq["done"], carry0, expert_seq,
+                                    anchor_w)
+            with trace.span("a3c.update.backward"):
+                ts.opt.zero_grad(set_to_none=True)
+                loss.backward()
+            with trace.span("a3c.update.allreduce"):
+                grads = all_reduce_grads([p.grad for p in ts.net.parameters()])
+            with trace.span("a3c.update.step"):
+                # optax.clip_by_global_norm: scale by max / norm when
+                # norm >= max
+                gnorm = parallel.global_norm(ts.net, grads)
+                keep = gnorm < CLIP_NORM
+                for g in grads:
+                    g.copy_(torch.where(keep, g, (g / gnorm) * CLIP_NORM))
+                lr = window_lr(cfg, ts.step // cfg.batch_size)
+                for group in ts.opt.param_groups:
+                    group["lr"] = lr
+                ts.opt.step()
+            ts.step += cfg.batch_size
+            return (loss.detach(), rew_seq.mean(),
+                    *(x.detach() for x in aux))
 
     def run_window(ts: A3CTS):
         """One n-step window: ``rollout``, then ``update``."""

@@ -50,6 +50,7 @@ from ..config import Config
 from ..envs.env import EnvState
 from ..envs.extra_wrappers import ungspace_actions
 from ..models.nets import ConvQNet, QNet
+from ..utils import trace
 from .common import (build_env, env_shard, env_state_dict, handle_modes,
                      load_env_state, refresh_schedule, trip_hist,
                      validate_telemetry, validation_hook)
@@ -183,16 +184,19 @@ def make_fns(cfg: Config, benv) -> QLearnFns:
         stack, step the env (history-free), insert, and train when the
         ring is full."""
         eps = exploration_param(cfg, ts.episode)
-        stack = torch.movedim(ts.replay.last_stack(), 0, 1)  # (B, k, obs)
-        a, _ = act(ts, stack, eps)                          # (B, heads)
+        with trace.span("qlearn.act"):
+            stack = torch.movedim(ts.replay.last_stack(), 0, 1)  # (B, k, obs)
+            a, _ = act(ts, stack, eps)                          # (B, heads)
         ts.env, obs1, rew, done, _ = benv.step_autoreset_lazy_noh(
             ts.env, env_action(a).T.to(I32).contiguous())
-        ts.replay.add_step(obs1.T, a, learn_reward(rew.T), done)
+        with trace.span("qlearn.insert"):
+            ts.replay.add_step(obs1.T, a, learn_reward(rew.T), done)
         ts.step += 1
         if ts.replay.filled >= ts.replay.size and \
                 ts.step % cfg.train_rate == 0:
-            loss, max_q, gnorm = td_update(
-                ts, ts.replay.sample(ts.generator, cfg.batch_size))
+            with trace.span("qlearn.sgd"):
+                loss, max_q, gnorm = td_update(
+                    ts, ts.replay.sample(ts.generator, cfg.batch_size))
         else:
             loss = max_q = gnorm = zero
         return rew.mean(), loss, max_q, gnorm

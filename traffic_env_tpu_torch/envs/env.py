@@ -46,6 +46,7 @@ from ..ops.philox import reset_bits
 from ..ops.window import build_spawn_rows, make_repeater_window
 from ..spaces import GSpace
 from ..topology import GridRoad
+from ..utils import trace
 from . import core as gather_core
 from . import fast_core
 from .structs import SimState, init_state
@@ -228,8 +229,18 @@ def make_env(topo: GridRoad, cfg: Config, n_envs: int,
         """The Repeater, then Remi/Localize/Squish shaping and the
         history roll (``noh``: the raw window obs out, the history left
         as it was)."""
-        sim, obs, rew, done, light_secs, ticks = rep(
-            state.sim, action, sched, lazy, emit_ticks)
+        with trace.span("env.step"):
+            with trace.span("env.window"):
+                sim, obs, rew, done, light_secs, ticks = rep(
+                    state.sim, action, sched, lazy, emit_ticks)
+            with trace.span("env.shape"):
+                return shape(state, sim, obs, rew, done, light_secs, ticks,
+                             noh, emit_ticks)
+
+    def shape(state, sim, obs, rew, done, light_secs, ticks, noh,
+              emit_ticks):
+        """``shaped_step`` after its window: the shaping and the history
+        roll."""
         obs = window_obs(sim, obs)
         if cfg.remi:
             sim, rew = fast_core.remi(topo, sim, remi_tables)

@@ -24,6 +24,7 @@ import torch
 from .. import constants as C
 from ..constants import RING, DETECT_RANGE, EPS, OVERFLOW_PENALTY, THRESH, \
     YELLOW_TICKS
+from ..utils import trace
 from . import _build
 from .philox import MAX_I, Slots
 from .window import MAX_K, WindowSpec
@@ -318,8 +319,10 @@ def window(spec: WindowSpec, d: dict, action, spawn_rows, seed,
     schedule mode ``spawn_ai`` i32 (W, Ks, B) is required.  ``geom``
     replaces :func:`spec_geometry` (the tuning sweep of ``chip_smoke.py
     --tune``); with ``clocks``, int64 (len(PHASES),), every block adds
-    the cycles of each phase to it (its phase profile).  Returns
-    (acc_passed, rew_sum, last_rew, last_passed)."""
+    the cycles of each phase to it (its phase profile); without
+    ``clocks``, the tracer's phase-clock tensor takes it while the tracer
+    is on (``utils/trace.py``).  Returns (acc_passed, rew_sum, last_rew,
+    last_passed)."""
     dev = d["x"].device
     if dev.type != "cuda":
         raise ValueError(f"window_cuda needs a CUDA state, got {dev}")
@@ -379,6 +382,11 @@ def window(spec: WindowSpec, d: dict, action, spawn_rows, seed,
     elif trip_hist is not None or light is not None:
         raise ValueError("trip_hist/light given to a window without "
                          "telemetry")
+    if clocks is None:
+        clocks = trace.phase_clocks(dev, len(PHASES))
+        if clocks is not None:
+            trace.count("window.block_ticks",
+                        -(-B // geom.envs_per_block) * W)
     if clocks is not None:
         _check("clocks", clocks, dev, torch.int64, (len(PHASES),))
         ptrs["clocks"] = clocks.data_ptr()

@@ -180,6 +180,16 @@ def mp_all_reduce(tensors):
     return tensors
 
 
+def all_gather_object(obj) -> list:
+    """The dp group's picklable ``obj`` in dp order (``[obj]``
+    unsharded)."""
+    if not _sharded():
+        return [obj]
+    out = [None] * _WORLD.dp
+    tdist.all_gather_object(out, obj, group=_WORLD.group)
+    return out
+
+
 def broadcast_object(obj, src: int = 0):
     """Rank ``src``'s picklable ``obj`` on every rank."""
     if _WORLD.size == 1:

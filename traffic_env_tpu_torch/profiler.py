@@ -20,7 +20,10 @@ training episodes (act, env, replay, update) of a learner with
 ``make_state``: qlearn, qrnn, a3c or polgrad_rnn.  Each run ends with one
 ``torch.cuda.synchronize()`` and prints one JSON line.  ``--trace=DIR``
 records CPU and CUDA activity over two sweep episodes (one training
-episode with ``--trainer``) and writes ``DIR/trace.json``.
+episode with ``--trainer``) with the program's tracer on, writes
+``DIR/trace.json`` (the program's spans beside the ops and kernels) and
+prints the tracer's span table: each span's count, host ms, self ms and
+device ms, the counters and the window's phase cycles.
 
 Runs on the CUDA card unless ``--platform=cpu`` is given; without a
 card it raises.
@@ -41,6 +44,7 @@ from .algorithms.common import device_of
 from .config import Config, derive_spawn_rate
 from .envs.rollout import make_batched_env, random_rollout
 from .topology import GridRoad
+from .utils import trace as tracer
 
 # the learners with make_state / run_episode
 TRAINERS = ("qlearn", "qrnn", "a3c", "polgrad_rnn")
@@ -75,19 +79,27 @@ def _sync(dev: torch.device) -> None:
 
 def trace(directory: str, fn: Callable, dev: torch.device):
     """``fn()`` under ``torch.profiler`` with CPU activity, and CUDA
-    activity on the card, ended by a synchronize; writes the Chrome /
-    Perfetto trace ``directory/trace.json`` and returns the profile
+    activity on the card, ended by a synchronize, with the program's
+    tracer on (``utils/trace.py``); writes the Chrome
+    / Perfetto trace ``directory/trace.json``, which holds the program's
+    spans, prints the tracer's span table and returns the profile
     (``key_averages()`` sums it by op and kernel)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(directory, exist_ok=True)
-    with profile(activities=acts) as prof:
-        fn()
-        _sync(dev)
+    tracer.reset()
+    tracer.enable()
+    try:
+        with profile(activities=acts) as prof:
+            fn()
+            _sync(dev)
+    finally:
+        tracer.disable()
     prof.export_chrome_trace(os.path.join(directory, "trace.json"))
     print(f"trace written to {directory}")
+    print(tracer.table(tracer.snapshot()))
     return prof
 
 

@@ -396,6 +396,53 @@ def test_a3c_loss_and_grads_on_card_match_cpu(kind, no_tf32):
             1e-4 * float(w.abs().max()), k
 
 
+@pytest.mark.gpu
+def test_convgru_hoisted_loss_and_grads_on_card_match_concatenated(no_tf32):
+    """On a CUDA card, TF32 off, at the learner cell's shape (2048 envs,
+    30 steps, 5x5, 20 frames of 13 columns, dones mid-window, the gated
+    anchor term): a3c's window loss with ConvGRUA3CNet's input
+    convolution taken out of the recurrence within 1e-5 relative of the
+    loss with the cell convolving the concatenated [h, x] a step
+    (``tests/test_torch_convgru_hoist.py:concat_forward``), every
+    gradient within 1e-4 of that tensor's largest |grad|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import functools
+    import types
+    from test_torch_convgru_hoist import concat_forward
+    from traffic_env_tpu_torch.algorithms import a3c
+    from traffic_env_tpu_torch.topology import GridRoad
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    net, d, I = _a3c_net("conv", gen)
+    net = net.cuda()
+    cfg = Config(trainer="a3c", conv_gru=True, grid_m=5, grid_n=5,
+                 bc_anchor=1.0, bc_anchor_gated=True).derive()
+    T, B = 30, 2048
+    cg = torch.Generator(device="cuda")
+    cg.manual_seed(4)
+    rand = lambda *shape: torch.rand(shape, generator=cg, device="cuda")
+    args = (rand(T, B, d) * 2, (rand(T, B, I) < 0.5).float(),
+            torch.randn((T, B, I), generator=cg, device="cuda"),
+            torch.randn((T, B, I), generator=cg, device="cuda"),
+            rand(T, B) < 0.05, rand(*net.initial_carry(B).shape) - 0.5,
+            (rand(T, B, I) < 0.5).float())
+    benv = types.SimpleNamespace(n_intersections=I, n_envs=B,
+                                 device=torch.device("cuda"))
+    fns = a3c.make_fns(cfg, benv, GridRoad(5, 5, 250.0))
+    out = []
+    for fwd in (net, functools.partial(concat_forward, net)):
+        net.zero_grad(set_to_none=True)
+        loss, _ = fns.loss_fn(fwd, *args, 1.0)
+        loss.backward()
+        out.append((float(loss.detach()),
+                    {k: p.grad.clone() for k, p in net.named_parameters()}))
+    assert abs(out[0][0] - out[1][0]) <= 1e-5 * abs(out[1][0])
+    for k, w in out[1][1].items():
+        assert float((out[0][1][k] - w).abs().max()) <= \
+            1e-4 * float(w.abs().max()), k
+
+
 def _recurrent_net(kind, gen):
     """A 3x3 DuelingQRNN (occupancy obs) or a PolGradNet on the 2,340-float
     distillation obs, its weights drawn from ``gen``: (net, obs size)."""

@@ -18,7 +18,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from ..utils import trace
 
 WIDTH = 200
 
@@ -76,8 +79,9 @@ def _frame_width(d: int, v: int) -> int:
     return 13 if d % (13 * v) == 0 else 9 if d % (9 * v) == 0 else 0
 
 
-def obs_grid_channels(flat: torch.Tensor, m: int, n: int) -> torch.Tensor:
-    """Batch-first flat observation (..., d) -> (..., m, n, C) grid maps.
+def _grid_maps(flat: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """Batch-first flat observation (..., d) -> (..., C, m, n) grid maps,
+    a view of it.
 
     A frame is the per-road passed and detected counts (4 directions
     each), the per-intersection phase feature and, with
@@ -86,15 +90,16 @@ def obs_grid_channels(flat: torch.Tensor, m: int, n: int) -> torch.Tensor:
     --history=k the flat obs is k frames, oldest first, and each frame
     is a channel group: C = 9k or 13k.  When no frame width divides
     ``d`` the maps are 9 channels of zeros, as in the JAX package."""
-    v = m * n
     lead = tuple(flat.shape[:-1])
-    width = _frame_width(flat.shape[-1], v)
+    width = _frame_width(flat.shape[-1], m * n)
     if not width:
-        return flat.new_zeros(lead + (m, n, 9))
-    k = flat.shape[-1] // (width * v)
-    g = flat.reshape(lead + (k, width, m, n))
-    return torch.movedim(g, (-4, -3), (-2, -1)).reshape(
-        lead + (m, n, k * width))
+        return flat.new_zeros(lead + (9, m, n))
+    return flat.reshape(lead + (flat.shape[-1] // (m * n), m, n))
+
+
+def obs_grid_channels(flat: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """``_grid_maps`` channels last, (..., m, n, C), a view."""
+    return _grid_maps(flat, m, n).movedim(-3, -1)
 
 
 class ConvQNet(nn.Module):
@@ -300,6 +305,61 @@ class PolGradNet(nn.Module):
         return self.score_layer(h1), carry
 
 
+def _tap_shifts(m: int, n: int) -> torch.Tensor:
+    """(9, m * n, m * n) of 0 and 1: [t, p, q] is 1 where tap t (row
+    major over a 3x3 kernel) of a SAME convolution at output position q
+    reads input position p (positions row * n + col): each tap's
+    one-hot kernel convolved with each position's one-hot map."""
+    maps = torch.eye(m * n).reshape(m * n, 1, m, n)
+    taps = torch.eye(9).reshape(9, 1, 3, 3)
+    return F.conv2d(maps, taps, padding=1).reshape(m * n, 9, m * n) \
+        .transpose(0, 1).contiguous()
+
+
+def _dense_kernel(w: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """A 3x3 SAME convolution's kernel w (C_out, C_in, 3, 3) as the
+    (C_in * m * n, C_out * m * n) matrix M of it on maps flattened
+    channels first: ``conv2d(x, w, padding=1).flatten(1) ==
+    x.flatten(1) @ M``."""
+    k, c = w.shape[:2]
+    mn = shifts.shape[1]
+    return torch.einsum("kct,tpq->cpkq", w.reshape(k, c, 9),
+                        shifts).reshape(c * mn, k * mn)
+
+
+class _InputConv(torch.autograd.Function):
+    """``conv2d(x[i], w, padding=1)`` for each step i of time-major maps
+    x (T, N, C, m, n), stacked.  The kernel's gradient is one product of
+    all T * N maps with the output's gradient, on the kernel's dense
+    matrix (``_dense_kernel``); the maps' gradient, where they need one,
+    is the transposed convolution."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w, shifts):
+        return torch.stack([F.conv2d(xi, w, padding=1) for xi in x])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w, shifts = ctx.saved_tensors
+        k, c = w.shape[:2]
+        mn = shifts.shape[1]
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = F.conv_transpose2d(grad.reshape((-1,) + grad.shape[2:]), w,
+                                    padding=1).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            gm = x.reshape(-1, c * mn).T @ grad.reshape(-1, k * mn)
+            gw = torch.einsum("cpkq,tpq->kct", gm.reshape(c, mn, k, mn),
+                              shifts).reshape(w.shape)
+        return gx, gw, None
+
+
 class ConvGRUCell(nn.Module):
     """The 2-D convolutional GRU cell over (B, C, m, n) maps: 3x3 SAME
     convolutions without bias, named as flax's,
@@ -307,29 +367,65 @@ class ConvGRUCell(nn.Module):
         z = sigmoid(update_gate([h, x])),  r = sigmoid(reset_gate([h, x])),
         h~ = tanh(candidate([r * h, x])),  h' = (1 - z) * h + z * h~,
 
-    with the state's channels before the input's."""
+    with the state's channels before the input's.  A gate's kernel is
+    [W^h | W^x] along its input axis, so its convolution of [h, x] is
+    conv(h, W^h) + conv(x, W^x), and the x terms need no state:
+    ``input_gates`` computes those of the three gates for a whole
+    sequence before the recurrence, and ``step`` adds one step's of them
+    to the state's terms.  The state's convolutions are products with
+    the kernels' dense matrices over the m x n map (``kernels``)."""
 
-    def __init__(self, n_in: int, hidden: int, generator=None):
+    def __init__(self, n_in: int, hidden: int, m: int, n: int,
+                 generator=None):
         super().__init__()
+        self.hidden = hidden
         for name in ("update_gate", "reset_gate", "candidate"):
             conv = nn.Conv2d(hidden + n_in, hidden, 3, padding=1,
                              bias=False)
             _lecun_normal_(conv.weight, generator)
             self.add_module(name, conv)
+        self.register_buffer("shifts", _tap_shifts(m, n), persistent=False)
 
-    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        both = torch.cat([h, x], 1)
-        z = torch.sigmoid(self.update_gate(both))
-        r = torch.sigmoid(self.reset_gate(both))
-        h_tilde = torch.tanh(self.candidate(torch.cat([r * h, x], 1)))
+    def kernels(self):
+        """(the input's kernels of z, r and h~ stacked, the dense matrix
+        of the state's kernels of z and r stacked, that of h~'s)."""
+        ws = (self.update_gate.weight, self.reset_gate.weight,
+              self.candidate.weight)
+        hid = self.hidden
+        return (torch.cat([w[:, hid:] for w in ws]),
+                _dense_kernel(torch.cat([w[:, :hid] for w in ws[:2]]),
+                              self.shifts),
+                _dense_kernel(ws[2][:, :hid], self.shifts))
+
+    def input_gates(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """Time-major maps (T, N, C_in, m, n) and the input's kernels ->
+        the input's terms of z, r and h~ stacked on the channels, (T, N,
+        3 * hidden, m, n)."""
+        return _InputConv.apply(x, w, self.shifts)
+
+    def step(self, gates: torch.Tensor, h: torch.Tensor, m_zr: torch.Tensor,
+             m_c: torch.Tensor) -> torch.Tensor:
+        """One step from the state h, the step's ``input_gates`` and the
+        state's dense matrices."""
+        hid = self.hidden
+        xz, xr, xc = gates.split(hid, 1)
+        b = h.shape[0]
+        zr = (h.reshape(b, -1) @ m_zr).reshape(b, 2 * hid, *h.shape[2:])
+        z = torch.sigmoid(zr[:, :hid] + xz)
+        r = torch.sigmoid(zr[:, hid:] + xr)
+        h_tilde = torch.tanh(((r * h).reshape(b, -1) @ m_c).reshape(h.shape)
+                             + xc)
         return (1 - z) * h + z * h_tilde
 
 
 class ConvGRUA3CNet(nn.Module):
     """The conv-GRU a3c policy over the intersection grid: batch-first
-    flat obs (B, T, d) -> ``obs_grid_channels`` maps -> ``ConvGRUCell``
+    flat obs (B, T, d) -> ``_grid_maps`` -> ``ConvGRUCell``
     over T -> 1x1 ``score_head``/``value_head`` convolutions with bias:
-    scores and values (B, T, m * n), intersection row * n + col.
+    scores and values (B, T, m * n), intersection row * n + col.  The
+    cell's input terms of all T steps are computed before the
+    recurrence (span ``convgru.input``; the counter
+    ``convgru.input_steps`` adds T a call).
 
     The carry is channels-first, (B, hidden_channels, m, n); the JAX
     package's is (B, m, n, hidden_channels), so carries cross with a
@@ -341,7 +437,8 @@ class ConvGRUA3CNet(nn.Module):
         self.m, self.n, self.hidden = m, n, hidden_channels
         width = _frame_width(obs_size, m * n)
         c_in = obs_size // (m * n) if width else 9
-        self.ConvGRUCell_0 = ConvGRUCell(c_in, hidden_channels, generator)
+        self.ConvGRUCell_0 = ConvGRUCell(c_in, hidden_channels, m, n,
+                                         generator)
         for name in ("score_head", "value_head"):
             conv = nn.Conv2d(hidden_channels, 1, 1)
             _lecun_normal_(conv.weight, generator)
@@ -355,11 +452,16 @@ class ConvGRUA3CNet(nn.Module):
     def forward(self, obs: torch.Tensor, carry: torch.Tensor,
                 reset: torch.Tensor | None = None):
         b, t = obs.shape[0], obs.shape[1]
-        g = obs_grid_channels(obs.reshape(b, t, -1), self.m, self.n)
-        x = g.permute(0, 1, 4, 2, 3)               # (b, t, C, m, n)
+        # time-major channels-first maps (a view of a time-major obs)
+        x = _grid_maps(obs.reshape(b, t, -1).transpose(0, 1), self.m,
+                       self.n)
         cell = self.ConvGRUCell_0
-        seq, carry = _run_cell(t, lambda i, h: cell(h, x[:, i]), carry,
-                               reset)
+        w_x, m_zr, m_c = cell.kernels()
+        with trace.span("convgru.input"):
+            gates = cell.input_gates(x, w_x).unbind(0)
+        trace.count("convgru.input_steps", t)
+        seq, carry = _run_cell(
+            t, lambda i, h: cell.step(gates[i], h, m_zr, m_c), carry, reset)
         flat = seq.reshape((b * t,) + tuple(seq.shape[2:]))
         head = lambda conv: conv(flat).reshape(b, t, self.m * self.n)
         return head(self.score_head), head(self.value_head), carry

@@ -29,6 +29,10 @@ The spans and counters, and what reads them (``PERF.md`` §3):
   ``a3c.update.allreduce`` (the dp gradient all-reduce) and
   ``a3c.update.step`` (clip and Adam); the bootstrap and GAE are
   ``a3c.update``'s self time.
+* ``convgru.input`` (``models/nets.py:ConvGRUA3CNet``: the cell's
+  input terms of a whole sequence, before the recurrence) and the
+  counter ``convgru.input_steps`` (the steps they cover: over the
+  span's count, T of the loss replay against 1 of a rollout step).
 * ``qlearn.act``, ``qlearn.insert`` (the replay ring), ``qlearn.sgd``
   (a sample and the TD step).
 * ``window.launches``: the window kernels launched since the last
